@@ -1,0 +1,103 @@
+"""Per-frame tile binning for the CUDA raster kernels.
+
+Counterpart of ``bin_stream`` in ``kanirenderer_tpu/ops/binning.py`` with
+its semantics and a layout of its own.  The screen is cut into
+tile_w × tile_h tiles; each tile gets the ascending list of CHUNK_SIZE
+triangle chunks (Morton-ordered at scene build) of which at least one
+SUBBATCH bounding box overlaps the tile.
+
+The lists are CSR-like: one sorted array of ``tile·C + chunk`` keys, built
+with one ``torch.sort``, and per-tile ``start``/``count`` into it, found by
+``searchsorted``.  A tile keeps at most ``cap`` chunks (the lowest ids);
+the rest are dropped and counted in ``overflow``, never silently.
+
+Sizing the expansion needs the number of (tile, chunk) pairs on the host:
+that is the one device-to-host synchronisation of a binning call.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from kanirenderer_tpu_torch.core.types import (CHUNK_SIZE, SUBBATCH,
+                                               SUBS_PER_CHUNK)
+
+Tensor = torch.Tensor
+
+
+class ChunkBins(NamedTuple):
+    start: Tensor     # (num_tiles,) i32 first entry of the tile in ``chunk``
+    count: Tensor     # (num_tiles,) i32 entries kept for the tile (≤ cap)
+    chunk: Tensor     # (N,) i32 chunk ids grouped by tile, ascending
+    overflow: Tensor  # () i32 entries dropped by the per-tile cap
+    tiles_x: int
+    tiles_y: int
+    tile_w: int
+    tile_h: int
+
+
+def bin_tiles(bbox: Tensor, width: int, height: int, tile_w: int,
+              tile_h: int, cap: int) -> ChunkBins:
+    """Bin chunks to tiles from per-triangle (T, 4) pixel bboxes
+    (ops/vertex.TriangleSetup.bbox; invalid triangles carry empty boxes)."""
+    dev = bbox.device
+    T = bbox.shape[0]
+    C = T // CHUNK_SIZE
+    tiles_x = -(-width // tile_w)
+    tiles_y = -(-height // tile_h)
+    num_tiles = tiles_x * tiles_y
+
+    bt = bbox.T.reshape(4, C, CHUNK_SIZE)
+    cx0 = bt[0].amin(-1)
+    cy0 = bt[1].amin(-1)
+    cx1 = bt[2].amax(-1)
+    cy1 = bt[3].amax(-1)
+    nonempty = (cx1 > cx0) & (cy1 > cy0)
+    sb = bt.reshape(4, C, SUBS_PER_CHUNK, SUBBATCH)
+    sx0 = sb[0].amin(-1)                        # (C, SUBS_PER_CHUNK)
+    sy0 = sb[1].amin(-1)
+    sx1 = sb[2].amax(-1)
+    sy1 = sb[3].amax(-1)
+
+    def tile_of(v, size, n):
+        return torch.clamp(torch.div(v, size, rounding_mode="floor")
+                           .to(torch.int64), 0, n - 1)
+
+    tx0 = tile_of(cx0, tile_w, tiles_x)
+    ty0 = tile_of(cy0, tile_h, tiles_y)
+    tx1 = tile_of(cx1 - 1.0, tile_w, tiles_x)
+    ty1 = tile_of(cy1 - 1.0, tile_h, tiles_y)
+    span_w = tx1 - tx0 + 1
+    span = torch.where(nonempty, span_w * (ty1 - ty0 + 1), 0)
+
+    # Expand every chunk over the tiles of its bbox.
+    n_pairs = int(span.sum())
+    cid = torch.repeat_interleave(torch.arange(C, device=dev), span,
+                                  output_size=n_pairs)
+    first = torch.cumsum(span, 0) - span
+    j = torch.arange(n_pairs, device=dev) - first[cid]
+    sw = span_w[cid]
+    txi = tx0[cid] + j % sw
+    tyi = ty0[cid] + torch.div(j, sw, rounding_mode="floor")
+
+    # Keep a pair when a subbatch bbox of the chunk overlaps the tile.
+    px0 = (txi * tile_w).to(torch.float32)[:, None]
+    py0 = (tyi * tile_h).to(torch.float32)[:, None]
+    hit = ((sx0[cid] < px0 + tile_w) & (sx1[cid] > px0)
+           & (sy0[cid] < py0 + tile_h) & (sy1[cid] > py0)).any(1)
+    sentinel = num_tiles * C
+    key = torch.where(hit, (tyi * tiles_x + txi) * C + cid, sentinel)
+    skey = torch.sort(key).values
+
+    tids = torch.arange(num_tiles, device=dev, dtype=torch.int64)
+    start = torch.searchsorted(skey, tids * C)
+    raw = torch.searchsorted(skey, (tids + 1) * C) - start
+    chunk = torch.where(skey < sentinel, skey % C, -1).to(torch.int32)
+    return ChunkBins(
+        start=start.to(torch.int32),
+        count=torch.clamp(raw, max=cap).to(torch.int32),
+        chunk=chunk,
+        overflow=torch.clamp(raw - cap, min=0).sum().to(torch.int32),
+        tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)

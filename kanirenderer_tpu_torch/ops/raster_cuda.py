@@ -1,0 +1,319 @@
+"""The two tile raster kernels: wrappers, launch counts and plain versions.
+
+Counterpart of ``kanirenderer_tpu/ops/raster_pallas.py``:
+
+* ``rasterize_depth`` (K1, csrc/raster_depth.cu) — depth-only raster of
+  the shadow map, the reference's ``_raster_kernel`` with depth_only=True;
+* ``rasterize_pixels`` (K2, csrc/raster_pixels.cu) — the fused visibility
+  raster + record interpolation, the reference's ``_fused_kernel``.
+
+Both take binned inputs (ops/binning.bin_tiles).  On a CUDA tensor a
+wrapper launches its kernel and counts the launch in ``launch_counts``; on
+a CPU tensor it runs its plain PyTorch version (``*_plain``), which
+computes the same function with the same floating-point order and serves
+as the oracle the kernels are checked against on the card.
+
+The kernels are built at first use with ``nvcc`` for sm_90a into one
+shared library with a plain C interface under ``_build/`` (listed in
+.gitignore), named by a hash of the sources, and loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from kanirenderer_tpu_torch.core.types import CHUNK_SIZE
+from kanirenderer_tpu_torch.ops.binning import ChunkBins
+from kanirenderer_tpu_torch.ops.interpolate import (FAT_LANES, LSUM0, PAR0,
+                                                    REC0, PixelBuffer)
+from kanirenderer_tpu_torch.ops.vertex import NS, USED
+
+Tensor = torch.Tensor
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+# Kernel launches since the last reset, by wrapper name.
+launch_counts = {"rasterize_depth": 0, "rasterize_pixels": 0}
+
+_lib = None
+build_info: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def _build() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    lib = BUILD_DIR / f"libkani_raster_{digest.hexdigest()[:16]}.so"
+    build_info["library"] = str(lib)
+    if lib.exists():
+        build_info.update(seconds=0.0, cached=True)
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    build_info.update(seconds=time.perf_counter() - t0, cached=False,
+                      ptxas=proc.stderr)
+    return lib
+
+
+def load_kernels() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.kani_rasterize_depth.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.kani_rasterize_depth.restype = i32
+        lib.kani_rasterize_pixels.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+        lib.kani_rasterize_pixels.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _check(t: Tensor, name: str, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_launch(rows: Tensor, lanes: int, bbox: Tensor, bins: ChunkBins,
+                  width: int, height: int) -> None:
+    dev = rows.device
+    T = rows.shape[0]
+    if T % CHUNK_SIZE:
+        raise ValueError("triangle count must be a multiple of CHUNK_SIZE")
+    _check(rows, "rows", (T, lanes), torch.float32, dev)
+    _check(bbox, "bbox", (T, 4), torch.float32, dev)
+    nt = bins.tiles_x * bins.tiles_y
+    _check(bins.start, "bins.start", (nt,), torch.int32, dev)
+    _check(bins.count, "bins.count", (nt,), torch.int32, dev)
+    _check(bins.chunk, "bins.chunk", bins.chunk.shape, torch.int32, dev)
+    block = bins.tile_w * bins.tile_h
+    if block % 32 or not 128 <= block <= 1024:
+        raise ValueError(f"tile {bins.tile_w}x{bins.tile_h}: the block "
+                         "size must be a multiple of 32 in [128, 1024]")
+    if (bins.tiles_x * bins.tile_w < width
+            or bins.tiles_y * bins.tile_h < height):
+        raise ValueError("bins do not cover the raster")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def rasterize_depth(setup: Tensor, bbox: Tensor, bins: ChunkBins,
+                    dim: int) -> Tensor:
+    """K1: (dim, dim) depth map, the minimum covered depth, 1.0 where
+    nothing covers.  ``setup``/``bbox``: (T, 16)/(T, 4) f32 from
+    ops/vertex.TriangleSetup."""
+    if setup.device.type == "cpu":
+        return rasterize_depth_plain(setup, bbox, bins, dim)
+    _check_launch(setup, NS, bbox, bins, dim, dim)
+    lib = load_kernels()
+    out = torch.empty((dim, dim), dtype=torch.float32, device=setup.device)
+    err = lib.kani_rasterize_depth(
+        *(t.data_ptr() for t in (setup, bbox, bins.start, bins.count,
+                                 bins.chunk, out)),
+        dim, dim, bins.tiles_x, bins.tiles_x * bins.tiles_y, bins.tile_w,
+        bins.tile_h, _stream())
+    launch_counts["rasterize_depth"] += 1
+    if err:
+        raise RuntimeError(f"rasterize_depth launch failed: CUDA error {err}")
+    return out
+
+
+def rasterize_pixels(records: Tensor, bbox: Tensor, bins: ChunkBins,
+                     width: int, height: int) -> PixelBuffer:
+    """K2: visibility + interpolation → PixelBuffer (with ``tid``).
+    ``records``: (T, 76) f32 from ops/interpolate.build_tri_records_corners."""
+    if records.device.type == "cpu":
+        return rasterize_pixels_plain(records, bbox, bins, width, height)
+    _check_launch(records, FAT_LANES, bbox, bins, width, height)
+    lib = load_kernels()
+    dev = records.device
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    vary = torch.empty((USED, height, width), dtype=torch.float32, device=dev)
+    ints = torch.empty((6, height, width), dtype=torch.int32, device=dev)
+    err = lib.kani_rasterize_pixels(
+        *(t.data_ptr() for t in (records, bbox, bins.start, bins.count,
+                                 bins.chunk, z, vary, ints)),
+        width, height, bins.tiles_x, bins.tiles_x * bins.tiles_y,
+        bins.tile_w, bins.tile_h, _stream())
+    launch_counts["rasterize_pixels"] += 1
+    if err:
+        raise RuntimeError(f"rasterize_pixels launch failed: CUDA error {err}")
+    return _pixel_buffer(z, vary, ints, bins)
+
+
+def _pixel_buffer(z, vary, ints, bins) -> PixelBuffer:
+    return PixelBuffer(varyings=vary, mat_id=ints[0], tex_w=ints[1],
+                       tex_h=ints[2], blk_base=ints[3], blk_w=ints[4],
+                       mask=ints[5] >= 0, z=z, overflow=bins.overflow,
+                       tid=ints[5])
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions.  They walk the binned (tile, chunk) pairs in
+# batches: every triangle of the pair's chunk against every pixel of the
+# pair's tile, the triangles whose bbox misses the tile masked out exactly
+# as the kernels skip them.  Memory per batch ≈ 40 bytes · PAIR_BATCH ·
+# CHUNK_SIZE · tile pixels (≈ 0.7 GB with 16×16 tiles).
+
+PAIR_BATCH = 512
+
+
+def _pairs(bins: ChunkBins):
+    """(tile, chunk) int64 index pairs of every kept bin entry."""
+    dev = bins.chunk.device
+    count = bins.count.to(torch.int64)
+    tile = torch.repeat_interleave(
+        torch.arange(count.shape[0], device=dev), count)
+    first = torch.cumsum(count, 0) - count
+    pos = torch.arange(tile.shape[0], device=dev) - first[tile]
+    chunk = bins.chunk.to(torch.int64)[bins.start.to(torch.int64)[tile] + pos]
+    return tile, chunk
+
+
+def _eval_pairs(rows: Tensor, bbox: Tensor, tile: Tensor, chunk: Tensor,
+                bins: ChunkBins, width: int, height: int):
+    """Coverage and depth of every triangle of each pair's chunk at every
+    pixel of its tile → (covered (P,128,px), z (P,128,px), pixel (P,px)),
+    pixel = row-major index, or width·height outside the raster."""
+    dev = rows.device
+    tw, th = bins.tile_w, bins.tile_h
+    lpix = torch.arange(tw * th, device=dev)
+    x = (tile % bins.tiles_x * tw)[:, None] + lpix % tw
+    y = (tile // bins.tiles_x * th)[:, None] + lpix // tw
+    X = (x.to(torch.float32) + 0.5)[:, None, :]
+    Y = (y.to(torch.float32) + 0.5)[:, None, :]
+    tri = chunk[:, None] * CHUNK_SIZE + torch.arange(CHUNK_SIZE, device=dev)
+    r = rows[:, :12][tri]                                 # (P, 128, 12)
+    b = bbox[tri]
+    tx0 = (tile % bins.tiles_x * tw).to(torch.float32)[:, None]
+    ty0 = (tile // bins.tiles_x * th).to(torch.float32)[:, None]
+    hit = (b[..., 0] < tx0 + tw) & (b[..., 2] > tx0) \
+        & (b[..., 1] < ty0 + th) & (b[..., 3] > ty0)
+
+    def plane(k):  # (a·X + c) + b·Y, the kernels' order
+        return (r[..., k, None] * X + r[..., k + 2, None]) \
+            + r[..., k + 1, None] * Y
+
+    l0, l1, l2, z = plane(0), plane(3), plane(6), plane(9)
+    covered = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (z >= 0) \
+        & (1.0 - z >= 0) & hit[..., None]
+    inside = (x < width) & (y < height)
+    pixel = torch.where(inside, y * width + x, width * height)
+    return covered, z, pixel
+
+
+def rasterize_depth_plain(setup: Tensor, bbox: Tensor, bins: ChunkBins,
+                          dim: int) -> Tensor:
+    """Plain PyTorch K1 (same inputs and result as ``rasterize_depth``)."""
+    out = torch.ones(dim * dim + 1, dtype=torch.float32, device=setup.device)
+    tile, chunk = _pairs(bins)
+    for s in range(0, tile.shape[0], PAIR_BATCH):
+        cov, z, pix = _eval_pairs(setup, bbox, tile[s:s + PAIR_BATCH],
+                                  chunk[s:s + PAIR_BATCH], bins, dim, dim)
+        zc = torch.where(cov, z, 1.0).amin(1)
+        out.scatter_reduce_(0, pix.reshape(-1), zc.reshape(-1), "amin")
+    return out[:-1].reshape(dim, dim)
+
+
+def rasterize_pixels_plain(records: Tensor, bbox: Tensor, bins: ChunkBins,
+                           width: int, height: int) -> PixelBuffer:
+    """Plain PyTorch K2 (same inputs and result as ``rasterize_pixels``).
+
+    Phase 1 is a lexicographic min of (z, triangle id) over candidates with
+    z < 1: each pair reduces its chunk to (z, lowest id at that z), then the
+    pixel minimum of z is scattered and the lowest id among the pairs that
+    reach it — the strict-< ascending tournament of the kernel."""
+    dev = records.device
+    hw = width * height
+    tile, chunk = _pairs(bins)
+    zbuf = torch.ones(hw + 1, dtype=torch.float32, device=dev)
+    kept = []
+    lane = torch.arange(CHUNK_SIZE, device=dev)[None, :, None]
+    for s in range(0, tile.shape[0], PAIR_BATCH):
+        ch = chunk[s:s + PAIR_BATCH]
+        cov, z, pix = _eval_pairs(records, bbox, tile[s:s + PAIR_BATCH], ch,
+                                  bins, width, height)
+        zc = torch.where(cov & (z < 1.0), z, 2.0)
+        pz = zc.amin(1)
+        k = torch.where(zc == pz[:, None], lane, CHUNK_SIZE).amin(1)
+        pid = (ch[:, None] * CHUNK_SIZE + k).to(torch.int32)
+        zbuf.scatter_reduce_(0, pix.reshape(-1), pz.reshape(-1), "amin")
+        kept.append((pz, pid, pix))
+    big = torch.iinfo(torch.int32).max
+    tbuf = torch.full((hw + 1,), big, dtype=torch.int32, device=dev)
+    for pz, pid, pix in kept:
+        cand = torch.where((pz < 1.0) & (pz == zbuf[pix]), pid, big)
+        tbuf.scatter_reduce_(0, pix.reshape(-1), cand.reshape(-1), "amin")
+    tid = torch.where(tbuf[:-1] == big, -1, tbuf[:-1])
+    z_out = zbuf[:-1]
+
+    # Phase 2: interpolate the winner's record at the pixel centre.
+    covered = tid >= 0
+    rec = records[tid.clamp(min=0).to(torch.int64)]        # (HW, 76)
+    p = torch.arange(hw, device=dev)
+    X = (p % width).to(torch.float32) + 0.5
+    Y = torch.div(p, width, rounding_mode="floor").to(torch.float32) + 0.5
+
+    def plane(k):  # ((a·X) + (b·Y)) + c, the reference's phase-2 order
+        return (rec[:, k] * X + rec[:, k + 1] * Y) + rec[:, k + 2]
+
+    l1, l2, lsum = plane(3), plane(6), plane(LSUM0)
+    lsafe = torch.where(lsum != 0.0, lsum, 1e-30)
+    w1 = (l1 / lsafe)[:, None]
+    w2 = (l2 / lsafe)[:, None]
+    vary = (rec[:, REC0:REC0 + USED] + rec[:, REC0 + USED:REC0 + 2 * USED]
+            * w1) + rec[:, REC0 + 2 * USED:REC0 + 3 * USED] * w2
+    vary = torch.where(covered[:, None], vary, 0.0)
+    par = rec[:, PAR0:PAR0 + 6].to(torch.int32)
+    ints = torch.stack([par[:, 0], par[:, 1], par[:, 2],
+                        par[:, 3] * 65536 + par[:, 4], par[:, 5]])
+    default = torch.tensor([0, 1, 1, 0, 1], dtype=torch.int32,
+                           device=dev)[:, None]
+    ints = torch.cat([torch.where(covered, ints, default), tid[None]])
+    return _pixel_buffer(z_out.reshape(height, width),
+                         vary.T.reshape(USED, height, width),
+                         ints.reshape(6, height, width), bins)

@@ -1,0 +1,121 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and skip elsewhere.  The GPU machine has no
+JAX, so run them without the suite's conftest (which imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: kernel and plain version evaluate every plane in the same
+order without fused multiply-adds, so depth maps, coverage, winners and
+interpolated outputs are expected bit-equal; the asserted bounds are the
+reference's raster parity bounds (test_binning_pallas.py:79-84).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kanirenderer_tpu_torch.core.types import (CHUNK_SIZE, RenderConfig,
+                                               camera_state, default_lights,
+                                               frame_state)
+from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
+from kanirenderer_tpu_torch.ops import raster_cuda as rc
+from kanirenderer_tpu_torch.ops.binning import bin_tiles
+from kanirenderer_tpu_torch.ops.interpolate import FAT_LANES
+from kanirenderer_tpu_torch.ops.vertex import triangle_setup_corners
+from kanirenderer_tpu_torch.passes.frame import frame_geometry
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def geometry():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    dev = torch.device("cuda", 0)
+    scene = sponza_standin_scene(target_tris=6000, num_materials=4,
+                                 tex_size=32, device=dev)
+    state = frame_state(scene, camera_state([-900.0, 180.0, 0.0], 0.0,
+                                            np.deg2rad(-5.0), dev),
+                        default_lights(device=dev))
+    cfg = RenderConfig(width=256, height=192, shadow_dim=256)
+    return frame_geometry(scene, state, cfg), cfg
+
+
+def test_depth_kernel_matches_plain(geometry):
+    g, cfg = geometry
+    st = g.shadow_setup
+    before = rc.launch_counts["rasterize_depth"]
+    k = rc.rasterize_depth(st.setup, st.bbox, g.shadow_bins, cfg.shadow_dim)
+    assert rc.launch_counts["rasterize_depth"] == before + 1
+    p = rc.rasterize_depth_plain(st.setup, st.bbox, g.shadow_bins,
+                                 cfg.shadow_dim)
+    torch.cuda.synchronize()
+    assert (k < 1.0).any()
+    assert torch.equal(k, p)
+
+
+def test_pixels_kernel_matches_plain(geometry):
+    g, cfg = geometry
+    W, H = cfg.width, cfg.height
+    k = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
+    p = rc.rasterize_pixels_plain(g.records, g.setup.bbox, g.bins, W, H)
+    torch.cuda.synchronize()
+    assert torch.equal(k.mask, p.mask)
+    same = k.tid == p.tid
+    assert (~same).float().mean().item() <= 0.002
+    torch.testing.assert_close(k.z[same], p.z[same], rtol=0, atol=1e-6)
+    torch.testing.assert_close(k.varyings[:, same], p.varyings[:, same],
+                               rtol=1e-6, atol=1e-5)
+    for f in ("mat_id", "tex_w", "tex_h", "blk_base", "blk_w"):
+        assert torch.equal(getattr(k, f)[same], getattr(p, f)[same]), f
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(geometry):
+    g, cfg = geometry
+    st = g.shadow_setup
+    with pytest.raises(ValueError):
+        rc.rasterize_depth(st.setup.double(), st.bbox, g.shadow_bins,
+                           cfg.shadow_dim)
+    with pytest.raises(ValueError):
+        rc.rasterize_pixels(g.records[:, :16].contiguous(), g.setup.bbox,
+                            g.bins, cfg.width, cfg.height)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernels_match_plain_on_random_triangles(geometry, seed):
+    """Random clip-space triangles (near-plane crossers, slivers, large
+    ones) through both kernels and their plain versions: bit-equal."""
+    dev = geometry[0].records.device
+    rng = np.random.RandomState(seed)
+    T = 4 * CHUNK_SIZE
+    w = rng.uniform(0.2, 2.0, (3, 1, T))
+    w[0, 0, rng.rand(T) < 0.03] = -0.2
+    centre = rng.uniform(-1.0, 1.0, (1, 2, T))
+    size = rng.choice([0.05, 0.3, 1.5], (1, 1, T), p=[0.7, 0.28, 0.02])
+    xy = (centre + size * rng.uniform(-1, 1, (3, 2, T))) * np.abs(w)
+    z = rng.uniform(-0.1, 1.1, (3, 1, T)) * np.abs(w)
+    clip = torch.from_numpy(np.concatenate([xy, z, w], 1).astype(
+        np.float32)).to(dev)
+    valid = torch.from_numpy(rng.rand(T) > 0.05).to(dev)
+    W, H = 200, 120
+    st, planes = triangle_setup_corners(clip, valid, W, H, False)
+    records = torch.zeros((T, FAT_LANES), device=dev)
+    records[:, :16] = planes.T
+    records[:, 16:67] = torch.from_numpy(
+        rng.standard_normal((T, 51)).astype(np.float32)).to(dev)
+    records[:, 67:73] = torch.from_numpy(
+        rng.randint(0, 30000, (T, 6)).astype(np.float32)).to(dev)
+    records[:, 73:76] = (planes[0:3] + planes[3:6] + planes[6:9]).T
+    bins = bin_tiles(st.bbox, W, H, 16, 16, cap=640)
+    k = rc.rasterize_pixels(records, st.bbox, bins, W, H)
+    p = rc.rasterize_pixels_plain(records, st.bbox, bins, W, H)
+    torch.cuda.synchronize()
+    assert 0.2 < k.mask.float().mean().item() < 1.0
+    for f in ("tid", "mask", "z", "varyings", "mat_id", "blk_base"):
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+    sq, _ = triangle_setup_corners(clip, valid, 128, 128, False)
+    sbins = bin_tiles(sq.bbox, 128, 128, 16, 16, cap=640)
+    assert torch.equal(rc.rasterize_depth(sq.setup, sq.bbox, sbins, 128),
+                       rc.rasterize_depth_plain(sq.setup, sq.bbox, sbins,
+                                                128))

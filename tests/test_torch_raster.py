@@ -1,0 +1,262 @@
+"""The plain PyTorch versions of K1 and K2 against the JAX package's rasters.
+
+The reference Pallas kernels run in interpret mode on the CPU, as the JAX
+package's own raster tests run them, with its loop-form subbatch sweep
+(``raster_pallas.EVAL_LOOP``, same results, an 8x smaller program to
+compile).  Both sides get the same setup rows (the port's, handed across).
+
+Tolerances:
+* K1: depth maps equal to the Pallas kernel's and to the brute-force
+  ``rasterize_depth_xla`` within 1e-6 (both evaluate the depth plane the
+  same way up to FMA contraction);
+* K2: the reference's parity bounds (test_binning_pallas.py:79-84) —
+  coverage mask identical, winning triangle differs on ≤ 0.2% of pixels,
+  depth within 1e-6 and integer planes equal where it agrees, varyings
+  within 1e-5 relative to each plane's magnitude.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import kanirenderer_tpu as kani
+from kanirenderer_tpu.ops import raster_pallas, raster_xla
+from kanirenderer_tpu.ops.interpolate import interpolate as ref_interpolate
+from kanirenderer_tpu.ops.vertex import TriangleSetup as RefSetup
+
+from kanirenderer_tpu_torch.core.types import (CHUNK_SIZE, RenderConfig,
+                                               camera_state, default_lights,
+                                               frame_state)
+from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
+from kanirenderer_tpu_torch.ops import raster_cuda as rc
+from kanirenderer_tpu_torch.ops import raster_xla as port_xla
+from kanirenderer_tpu_torch.ops import vertex
+from kanirenderer_tpu_torch.ops.binning import bin_tiles
+from kanirenderer_tpu_torch.ops.interpolate import FAT_LANES
+from kanirenderer_tpu_torch.passes.frame import frame_geometry
+
+W, H, D = 256, 192, 256
+
+
+@pytest.fixture(scope="module")
+def geometry():
+    scene = sponza_standin_scene(target_tris=6000, num_materials=4,
+                                 tex_size=32)
+    state = frame_state(scene, camera_state([-900.0, 180.0, 0.0], 0.0,
+                                            np.deg2rad(-5.0)),
+                        default_lights())
+    return frame_geometry(scene, state,
+                          RenderConfig(width=W, height=H, shadow_dim=D))
+
+
+@pytest.fixture
+def pallas_loop_form(monkeypatch):
+    monkeypatch.setattr(raster_pallas, "EVAL_LOOP", True)
+
+
+def ref_setup(st):
+    return RefSetup(setup=jnp.asarray(st.setup.numpy()),
+                    bbox=jnp.asarray(st.bbox.numpy()),
+                    clipfree=jnp.asarray(st.clipfree.numpy()),
+                    zmin=jnp.asarray(st.zmin.numpy()))
+
+
+def test_depth_plain_matches_pallas_and_xla(geometry, pallas_loop_form):
+    st = geometry.shadow_setup
+    ours = rc.rasterize_depth(st.setup, st.bbox, geometry.shadow_bins, D)
+    assert ours.shape == (D, D) and (ours < 1.0).mean(dtype=float) > 0.05
+    cfg = kani.RenderConfig(width=W, height=H, shadow_dim=D)
+    pallas = np.asarray(raster_pallas.rasterize_depth(ref_setup(st), cfg))
+    brute = np.asarray(raster_xla.rasterize_depth_xla(
+        jnp.asarray(st.setup.numpy()), D))
+    np.testing.assert_allclose(ours.numpy(), pallas, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ours.numpy(), brute, rtol=0, atol=1e-6)
+
+
+def test_pixels_plain_matches_pallas(geometry, pallas_loop_form):
+    g = geometry
+    ours = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
+    cfg = kani.RenderConfig(width=W, height=H, shadow_dim=D)
+    rec = np.zeros((g.records.shape[0], 128), np.float32)
+    rec[:, :FAT_LANES] = g.records.numpy()
+    ref = raster_pallas.rasterize_pixels(ref_setup(g.setup),
+                                         jnp.asarray(rec), cfg)
+    vis = raster_xla.rasterize_xla(jnp.asarray(g.setup.setup.numpy()), W, H)
+
+    np.testing.assert_array_equal(ours.mask.numpy(), np.asarray(ref.mask))
+    assert ours.mask.float().mean() > 0.5
+    tid = ours.tid.numpy()
+    same = tid == np.asarray(vis.tri)
+    assert (~same).mean() <= 0.002
+    np.testing.assert_allclose(ours.z.numpy(), np.asarray(ref.z), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(ours.z.numpy()[same], np.asarray(vis.z)[same],
+                               rtol=0, atol=1e-6)
+    a, b = ours.varyings.numpy(), np.asarray(ref.varyings)
+    scale = np.abs(b).max(axis=(1, 2), keepdims=True) + 1.0
+    assert (np.abs(a - b) <= 1e-5 * scale).all()
+    for f in ("mat_id", "tex_w", "tex_h", "blk_base", "blk_w"):
+        np.testing.assert_array_equal(getattr(ours, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+    assert int(ours.overflow) == 0
+    assert ours.tid.dtype == ours.mat_id.dtype == torch.int32
+
+
+def _band_setup(bands, T=3 * CHUNK_SIZE, width=64, height=32):
+    """Setup rows and bboxes of triangles covering x ∈ [x0, x1), y ≥ 4 at a
+    constant depth: ``bands`` maps triangle id → (x0, x1, z); the other
+    rows are invalid (zero with e0.c = −1, empty bbox)."""
+    setup = torch.zeros((T, 16))
+    setup[:, 2] = -1.0
+    bbox = torch.zeros((T, 4))
+    bbox[:, 0], bbox[:, 1] = width, height
+    for i, (x0, x1, z) in bands.items():
+        setup[i, 0:3] = torch.tensor([1.0, 0.0, -x0])     # x − x0 ≥ 0
+        setup[i, 3:6] = torch.tensor([-1.0, 0.0, x1])     # x1 − x ≥ 0
+        setup[i, 6:9] = torch.tensor([0.0, 1.0, -4.0])    # y − 4 ≥ 0
+        setup[i, 9:12] = torch.tensor([0.0, 0.0, z])
+        setup[i, 15] = 1.0
+        bbox[i] = torch.tensor([x0, 4.0, x1, height])
+    records = torch.zeros((T, FAT_LANES))
+    records[:, :16] = setup
+    records[:, 67] = torch.arange(T, dtype=torch.float32)   # mat = id
+    return setup, bbox, records
+
+
+def test_depth_ties_keep_the_lower_triangle_id():
+    """Coplanar triangles in one chunk and across chunks: the lowest id
+    wins a depth tie (strict < in ascending id), a nearer triangle wins
+    outright, and a triangle at z = 1 (the clear depth) is never kept."""
+    bands = {7: (8, 40, 0.5), 3: (8, 40, 0.5), 140: (8, 40, 0.5),
+             290: (44, 60, 1.0)}
+    setup, bbox, records = _band_setup(bands)
+    bins = bin_tiles(bbox, 64, 32, 16, 16, cap=64)
+    pix = rc.rasterize_pixels(records, bbox, bins, 64, 32)
+    inside = torch.zeros((32, 64), dtype=torch.bool)
+    inside[4:, 8:40] = True
+    assert torch.equal(pix.mask, inside)
+    assert (pix.tid[inside] == 3).all() and (pix.mat_id[inside] == 3).all()
+    assert (pix.z[inside] == 0.5).all() and (pix.z[~inside] == 1.0).all()
+    assert (pix.tid[~inside] == -1).all()
+
+    bands[200] = (8, 40, 0.25)                # nearer, higher id
+    setup, bbox, records = _band_setup(bands, height=64)
+    pix = rc.rasterize_pixels(records, bbox,
+                              bin_tiles(bbox, 64, 32, 16, 16, cap=64), 64, 32)
+    assert (pix.tid[inside] == 200).all()
+    depth = rc.rasterize_depth(setup, bbox,
+                               bin_tiles(bbox, 64, 64, 16, 16, cap=64), 64)
+    assert (depth[4:, 8:40] == 0.25).all()
+    assert (depth[:, 40:] == 1.0).all() and (depth[:4] == 1.0).all()
+
+
+def test_pixels_plain_matches_brute_force_interpolation(geometry):
+    """Phase 2 against the reference's gather-based interpolate on the
+    brute-force visibility buffer (the XLA backend's path), where the
+    winning triangle agrees."""
+    g = geometry
+    ours = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
+    vis = raster_xla.rasterize_xla(jnp.asarray(g.setup.setup.numpy()), W, H)
+    same = ours.tid.numpy() == np.asarray(vis.tri)
+    # per-vertex tables in the reference's layout: one vertex per corner
+    T = g.records.shape[0]
+    vary = g.vout.varyings.permute(2, 0, 1).reshape(3 * T, -1).numpy()
+    tri_idx = np.arange(3 * T, dtype=np.int32).reshape(T, 3)
+    extra = g.records[:, 67:73].numpy()
+    mat = extra[:, 0].astype(np.int32)
+    ref = ref_interpolate(vis, jnp.asarray(tri_idx), jnp.asarray(mat),
+                          jnp.asarray(vary), jnp.zeros(1, jnp.int32),
+                          jnp.zeros(1, jnp.int32), jnp.zeros((1, 2),
+                                                             jnp.int32))
+    a, b = ours.varyings.numpy()[:, same], np.asarray(ref.varyings)[:, same]
+    scale = np.abs(b).max(axis=1, keepdims=True) + 1.0
+    assert (np.abs(a - b) <= 1e-5 * scale).all()
+    np.testing.assert_array_equal(ours.mat_id.numpy()[same],
+                                  np.asarray(ref.mat_id)[same])
+
+
+def test_brute_force_oracle(geometry):
+    """The port's brute-force rasters against the reference's, and the
+    plain tile rasters against them (K2 bounds as above; depth maps within
+    1e-6).  Barycentrics within 1e-4: the reference oracle is compiled, and
+    XLA's contracted multiply-adds move l_i/Σl by ulps of plane
+    coefficients that reach 1e5 at this pose."""
+    g = geometry
+    vis = port_xla.rasterize_xla(g.setup.setup, W, H)
+    ref = raster_xla.rasterize_xla(jnp.asarray(g.setup.setup.numpy()), W, H)
+    same = vis.tri.numpy() == np.asarray(ref.tri)
+    assert (~same).mean() <= 0.002 and (vis.tri >= 0).float().mean() > 0.5
+    np.testing.assert_allclose(vis.z.numpy()[same], np.asarray(ref.z)[same],
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(vis.bary.numpy()[same],
+                               np.asarray(ref.bary)[same], rtol=0, atol=1e-4)
+    pix = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
+    same = pix.tid == vis.tri
+    assert (~same).float().mean() <= 0.002
+    torch.testing.assert_close(pix.z[same], vis.z[same], rtol=0, atol=1e-6)
+
+    st = g.shadow_setup
+    depth = port_xla.rasterize_depth_xla(st.setup, D)
+    np.testing.assert_allclose(
+        depth.numpy(), np.asarray(raster_xla.rasterize_depth_xla(
+            jnp.asarray(st.setup.numpy()), D)), rtol=0, atol=1e-6)
+    torch.testing.assert_close(
+        rc.rasterize_depth(st.setup, st.bbox, g.shadow_bins, D), depth,
+        rtol=0, atol=1e-6)
+
+
+def random_triangles(seed, width, height, T=3 * CHUNK_SIZE):
+    """Triangle setup of random clip-space triangles: small and large ones,
+    some crossing the near plane (w < 0 corners), some outside the depth
+    range, ~5% invalid."""
+    rng = np.random.RandomState(seed)
+    w = rng.uniform(0.2, 2.0, (3, 1, T))
+    w[0, 0, rng.rand(T) < 0.03] = -0.2       # near-plane crossers
+    centre = rng.uniform(-1.0, 1.0, (1, 2, T))
+    size = rng.choice([0.05, 0.3, 1.5], (1, 1, T), p=[0.7, 0.28, 0.02])
+    xy = (centre + size * rng.uniform(-1, 1, (3, 2, T))) * np.abs(w)
+    z = rng.uniform(-0.1, 1.1, (3, 1, T)) * np.abs(w)
+    clip = torch.from_numpy(np.concatenate([xy, z, w], 1).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(T) > 0.05)
+    st, _ = vertex.triangle_setup_corners(clip, valid, width, height, False)
+    return st
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_rasters_match_oracle_on_random_triangles(seed):
+    """Near-plane crossers, slivers and full-screen triangles through the
+    binner and the plain tile rasters, against the brute-force oracle:
+    winners within the K2 bound above; depth within four float32 ulps of
+    the depth plane's terms |a|·x + |b|·y + |c| (these planes reach
+    coefficients of ~100, and the oracle adds the same three terms in
+    another order)."""
+    W2, H2 = 80, 48
+    st = random_triangles(seed, W2, H2)
+    assert (~st.clipfree).any() and (st.setup[:, 15] > 0).sum() > 200
+    records = torch.zeros((st.setup.shape[0], FAT_LANES))
+    records[:, :16] = st.setup
+    bins = bin_tiles(st.bbox, W2, H2, 16, 16, cap=640)
+    pix = rc.rasterize_pixels(records, st.bbox, bins, W2, H2)
+    vis = port_xla.rasterize_xla(st.setup, W2, H2)
+    assert 0.2 < pix.mask.float().mean() < 1.0
+    same = pix.tid == vis.tri
+    assert (~same).float().mean() <= 0.002
+    assert _within_ulps(pix.z, vis.z, st.setup, pix.tid)[same].all()
+
+    sq = random_triangles(seed, 64, 64)
+    bins = bin_tiles(sq.bbox, 64, 64, 16, 16, cap=640)
+    depth = rc.rasterize_depth(sq.setup, sq.bbox, bins, 64)
+    want = port_xla.rasterize_depth_xla(sq.setup, 64)
+    winner = port_xla.rasterize_xla(sq.setup, 64, 64).tri
+    assert _within_ulps(depth, want, sq.setup, winner).all()
+
+
+def _within_ulps(z, want, setup, tid):
+    """|z − want| ≤ 4 ulps of the winning depth plane's term magnitude."""
+    h, w = z.shape
+    r = setup[tid.clamp(min=0).to(torch.int64)]
+    x = torch.arange(w, dtype=torch.float32) + 0.5
+    y = torch.arange(h, dtype=torch.float32)[:, None] + 0.5
+    scale = r[..., 9].abs() * x + r[..., 10].abs() * y + r[..., 11].abs()
+    return (z - want).abs() <= 4 * 2.0 ** -24 * scale + 1e-7
