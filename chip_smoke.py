@@ -3,17 +3,31 @@
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure exits non-zero:
+Phases, one line each (phase 10 one per configuration); any failure exits
+non-zero:
   1. device: needs CUDA; prints the nvidia-smi name/power-limit line;
-  2. build: compiles the raster kernels from csrc/ with nvcc (sm_90a);
+  2. build: compiles the raster kernels from csrc/ with nvcc (sm_90a), one
+     compiler process per source, all started together;
   3. K1 (shadow depth raster) against its plain PyTorch version on the
      full-size sponza stand-in, 2048² map, bench pose;
   4. K2 (fused raster + interpolation) against its plain version at
      1920×1080, same pose;
-  5. small frame: the whole frame through the kernels against the plain
-     path on the CPU (256×192, small stand-in), golden criterion;
+  5. small frame: the whole LIT_SHADOW frame through the kernels against
+     the plain path on the CPU (256×192, small stand-in), golden criterion;
   6. main path: 3 warm-up + 30 fly-through frames at 1920×1080 with a
-     fresh 2048² shadow map, both kernels launched once per frame.
+     fresh 2048² shadow map, both kernels launched once per frame;
+  7. K2w (K2's wireframe variant) against its plain version at 1920×1080,
+     bench pose, the camera setup without back-face culling;
+  8. K3 (visibility raster) against its plain version at 1920×1080, with
+     and without wireframe coverage;
+  9. small frames: every other configuration of flythrough.MODE_CONFIGS
+     through the kernels against the CPU path, golden criterion (HDR at
+     255× its float16 values);
+ 10. every mode on the main path: 3 warm-up + 10 fly-through frames at
+     1920×1080 per configuration, each launching exactly its kernels once
+     per frame;
+ 11. the visibility entry (ops.raster_cuda.rasterize_config, which no
+     frame path calls) over the same 10 poses, with and without wireframe.
 Then a JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -25,12 +39,30 @@ import sys
 import time
 
 WARMUP, FRAMES = 3, 30
+MODE_FRAMES = 10
 # Kernel vs plain version, same inputs on the card.  Both evaluate every
-# plane in the same order with no fused multiply-add, so K1 and the K2
-# depth are expected bit-equal; the K2 bounds are the parity bounds the
-# reference's own raster tests use (test_binning_pallas.py:79-84).
+# plane in the same order with no fused multiply-add, so the kernels are
+# expected bit-equal; the K2 bounds are the parity bounds the reference's
+# own raster tests use (test_binning_pallas.py:79-84), K3's those of the
+# visibility buffer.
 K1_TOL = 0.0
 K2_TID_FRAC, K2_Z_TOL, K2_VARY_TOL = 0.002, 1e-6, 1e-4
+K3_TRI_FRAC, K3_Z_TOL, K3_BARY_TOL = 0.998, 1e-6, 1e-5
+# The golden criterion (tests/test_golden.py:65-68).
+GOLD_FRAC8, GOLD_MEAN = 0.01, 1.5
+# Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and FP32
+# operations/s outside the tensor cores.
+HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
+# FP32 operations per (triangle, pixel) evaluation, counted from the
+# kernels' source: the five-plane coverage (4 planes of 2 mul + 2 add, and
+# 1 − z) and the depth min or tournament compare, 18 in all; the wireframe
+# edge distances where that coverage holds, 3 × (a² + b² + 1e-30: 4; sqrt,
+# 1/x: 2; (a·X + c)·g + (b·Y)·g: 6) plus 2 min and the threshold compare.
+OPS_COVER, OPS_WIRE = 18, 39
+# Per covered pixel after the tournament: K2's barycentrics (3 planes, 2
+# divisions) and 17 varyings of 2 mul + 2 add; K3's 3 planes, 2 adds and
+# 2 divisions.
+OPS_K2_PIXEL, OPS_K3_PIXEL = 3 * 4 + 2 + 17 * 4, 3 * 4 + 2 + 2
 
 
 def fail(msg: str) -> None:
@@ -52,20 +84,75 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def raster_work(rows, bbox, bins, width, height, wire):
+    """(triangle, pixel) evaluations the kernel makes on these inputs: the
+    bbox-hitting triangles of every (tile, chunk) pair × tile pixels, and
+    with ``wire`` the evaluations whose five-plane coverage holds (where
+    the kernel goes on to the edge distances)."""
+    import torch
+    from kanirenderer_tpu_torch.core.types import CHUNK_SIZE
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    tile, chunk = rc._pairs(bins)
+    tw, th = bins.tile_w, bins.tile_h
+    hits = covered = 0
+    lane = torch.arange(CHUNK_SIZE, device=bbox.device)
+    for s in range(0, tile.shape[0], rc.PAIR_BATCH):
+        t, c = tile[s:s + rc.PAIR_BATCH], chunk[s:s + rc.PAIR_BATCH]
+        b = bbox[c[:, None] * CHUNK_SIZE + lane]
+        tx0 = (t % bins.tiles_x * tw).to(torch.float32)[:, None]
+        ty0 = (t // bins.tiles_x * th).to(torch.float32)[:, None]
+        hit = (b[..., 0] < tx0 + tw) & (b[..., 2] > tx0) \
+            & (b[..., 1] < ty0 + th) & (b[..., 3] > ty0)
+        hits += int(hit.sum()) * tw * th
+        if wire:
+            cov, _, _ = rc._eval_pairs(rows, bbox, t, c, bins, width, height)
+            covered += int(cov.sum())
+    return hits, covered
+
+
+def bound(bytes_moved: int, ops: int) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    FP32 operations over the FP32 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = ops / FP32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def golden_diff(a, b):
+    """(fraction of values > 8 levels apart, mean difference) of two
+    surfaces on the CPU; float16 (HDR) surfaces at 255× their values."""
+    import torch
+    scale = 255.0 if a.dtype == torch.float16 else 1.0
+    diff = (a.double() - b.double()).abs() * scale
+    return (diff > 8).double().mean().item(), diff.mean().item()
+
+
+def image_std(img) -> float:
+    import torch
+    scale = 255.0 if img.dtype == torch.float16 else 1.0
+    return img.float().std().item() * scale
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: the port's smoke run needs one GPU",
               file=sys.stderr)
         return 1
+    import dataclasses
     from kanirenderer_tpu_torch import flythrough
-    from kanirenderer_tpu_torch.core.types import (RenderConfig,
+    from kanirenderer_tpu_torch.core.types import (RenderConfig, RenderMode,
                                                    camera_state,
                                                    default_lights,
                                                    frame_state)
     from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
     from kanirenderer_tpu_torch.ops import raster_cuda as rc
-    from kanirenderer_tpu_torch.passes.frame import (frame_geometry,
+    from kanirenderer_tpu_torch.passes.frame import (SHADOW_MODES,
+                                                     frame_geometry,
                                                      render_frame)
 
     card = subprocess.run(
@@ -94,7 +181,7 @@ def main() -> int:
                                             cam0.pitch, dev), lights)
     g = frame_geometry(scene, state, cfg)
     D, W, H = cfg.shadow_dim, cfg.width, cfg.height
-    kernels = []
+    kernels = {}
 
     # ---- phase 3: K1 against its plain version ----
     sh = g.shadow_setup
@@ -113,11 +200,14 @@ def main() -> int:
           f"{ms1:.3f} ms vs plain {pms1:.1f} ms", flush=True)
     if not err1 <= K1_TOL or covered1 <= 0.0:
         fail("K1 disagrees with its plain version")
-    kernels.append(dict(
-        name="rasterize_depth", route="cuda",
+    hits1, _ = raster_work(sh.setup, sh.bbox, g.shadow_bins, D, D, False)
+    b = g.shadow_bins
+    kernels["rasterize_depth"] = dict(
         source="kanirenderer_tpu_torch/csrc/raster_depth.cu",
         replaces="kanirenderer_tpu/ops/raster_pallas.py:410",
-        max_abs_err=err1, ms=ms1, plain_ms=pms1))
+        max_abs_err=err1, ms=ms1, plain_ms=pms1,
+        bytes=nbytes(sh.setup, sh.bbox, b.start, b.count, b.chunk, k1),
+        ops=hits1 * OPS_COVER)
 
     # ---- phase 4: K2 against its plain version ----
     k2 = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
@@ -144,29 +234,39 @@ def main() -> int:
     if not (tid_frac <= K2_TID_FRAC and z_err <= K2_Z_TOL
             and v_err <= K2_VARY_TOL and ints_ok):
         fail("K2 disagrees with its plain version")
-    kernels.append(dict(
-        name="rasterize_pixels", route="cuda",
+    hits2, _ = raster_work(g.records, g.setup.bbox, g.bins, W, H, False)
+    b = g.bins
+    px_out = nbytes(k2.z, k2.varyings, k2.mat_id) + 5 * nbytes(k2.mat_id)
+    kernels["rasterize_pixels"] = dict(
         source="kanirenderer_tpu_torch/csrc/raster_pixels.cu",
         replaces="kanirenderer_tpu/ops/raster_pallas.py:759",
-        max_abs_err=max(z_err, v_err), ms=ms2, plain_ms=pms2))
+        max_abs_err=max(z_err, v_err), ms=ms2, plain_ms=pms2,
+        bytes=nbytes(g.records, g.setup.bbox, b.start, b.count, b.chunk)
+        + px_out,
+        ops=hits2 * OPS_COVER + int(k2.mask.sum()) * OPS_K2_PIXEL)
     del k1, p1, k2, p2
 
     # ---- phase 5: small frame, kernels against the plain CPU path ----
     small_cfg = RenderConfig(width=256, height=192, shadow_dim=256,
                              output_u8=True)
-    small = {}
-    for d in (torch.device("cpu"), dev):
+    small_scenes = {}
+    for key, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
         sc = sponza_standin_scene(target_tris=6000, num_materials=4,
                                   tex_size=32, device=d)
-        st = frame_state(sc, camera_state(cam0.position, cam0.yaw,
-                                          cam0.pitch, d),
-                         default_lights(device=d))
-        small[d.type] = render_frame(sc, st, small_cfg).image.cpu()
-    diff = (small["cpu"].int() - small["cuda"].int()).abs()
-    frac8, mean = (diff > 8).float().mean().item(), diff.float().mean().item()
+        small_scenes[key] = (sc, frame_state(
+            sc, camera_state(cam0.position, cam0.yaw, cam0.pitch, d),
+            default_lights(device=d)))
+
+    def small_frame(c):
+        imgs = {k: render_frame(sc, st, c).image.cpu()
+                for k, (sc, st) in small_scenes.items()}
+        return golden_diff(imgs["cpu"], imgs["cuda"])
+
+    frac8, mean = small_frame(small_cfg)
     print(f"phase 5 small frame cuda vs cpu: >8 levels {frac8:.5f} "
-          f"(tol 0.01), mean {mean:.4f} (tol 1.5)", flush=True)
-    if not (frac8 < 0.01 and mean < 1.5):
+          f"(tol {GOLD_FRAC8}), mean {mean:.4f} (tol {GOLD_MEAN})",
+          flush=True)
+    if not (frac8 < GOLD_FRAC8 and mean < GOLD_MEAN):
         fail("small frame through the kernels disagrees with the CPU path")
 
     # ---- phase 6: the main path ----
@@ -186,7 +286,9 @@ def main() -> int:
           f"shadow, launches {counts}, overflow {overflow}, "
           f"image {tuple(img.shape)} {img.dtype} std {std:.2f}, "
           f"covered {covered:.3f}", flush=True)
-    if counts != {"rasterize_depth": n, "rasterize_pixels": n}:
+    if counts != {"rasterize_depth": n, "rasterize_pixels": n,
+                  "rasterize_pixels_wireframe": 0,
+                  "rasterize_visibility": 0}:
         fail(f"launch counts {counts} != {n} per kernel")
     if overflow:
         fail(f"binning dropped {overflow} chunks")
@@ -196,13 +298,179 @@ def main() -> int:
     print(f"median frame {med:.2f} ms over {FRAMES} frames "
           f"(min {min(ms[WARMUP:]):.2f}, max {max(ms[WARMUP:]):.2f}) "
           f"on {card}", flush=True)
+    kernels["rasterize_depth"]["launches"] = counts["rasterize_depth"]
+    kernels["rasterize_pixels"]["launches"] = counts["rasterize_pixels"]
+
+    # ---- phase 7: K2w against its plain version ----
+    wcfg = flythrough.MODE_CONFIGS["wireframe"]
+    gw = frame_geometry(scene, state, wcfg)
+    thresh = wcfg.wire_thresh_px
+    max_chunks = int(gw.bins.count.max())
+    k2w = rc.rasterize_pixels(gw.records, gw.setup.bbox, gw.bins, W, H, True,
+                              thresh)
+    p2w = rc.rasterize_pixels_plain(gw.records, gw.setup.bbox, gw.bins, W,
+                                    H, True, thresh)
+    torch.cuda.synchronize()
+    mask_ok = torch.equal(k2w.mask, p2w.mask)
+    same = k2w.tid == p2w.tid
+    tid_frac = 1.0 - same.float().mean().item()
+    z_err = (k2w.z - p2w.z)[same].abs().max().item()
+    v_err = (k2w.varyings - p2w.varyings)[:, same].abs().max().item()
+    ints_ok = all(torch.equal(getattr(k2w, f)[same], getattr(p2w, f)[same])
+                  for f in ("mat_id", "tex_w", "tex_h", "blk_base", "blk_w"))
+    ms2w = cuda_ms(lambda: rc.rasterize_pixels(
+        gw.records, gw.setup.bbox, gw.bins, W, H, True, thresh), 20)
+    pms2w = cuda_ms(lambda: rc.rasterize_pixels_plain(
+        gw.records, gw.setup.bbox, gw.bins, W, H, True, thresh), 2)
+    print(f"phase 7 K2w {W}x{H}: mask equal {mask_ok}, tid differs "
+          f"{tid_frac:.5f} (tol {K2_TID_FRAC}), z {z_err:.3g} "
+          f"(tol {K2_Z_TOL}), varyings {v_err:.3g} (tol {K2_VARY_TOL}), "
+          f"ints equal {ints_ok}, covered {k2w.mask.float().mean().item():.3f}"
+          f", bin pairs {int(gw.bins.count.sum())}, largest tile "
+          f"{max_chunks} chunks (cap {wcfg.max_chunks_per_tile}), overflow "
+          f"{int(gw.bins.overflow)}, {ms2w:.3f} ms vs plain {pms2w:.1f} ms",
+          flush=True)
+    if not (mask_ok and tid_frac <= K2_TID_FRAC and z_err <= K2_Z_TOL
+            and v_err <= K2_VARY_TOL and ints_ok):
+        fail("K2w disagrees with its plain version")
+    if int(gw.bins.overflow):
+        fail("wireframe binning dropped chunks")
+    hits2w, cov2w = raster_work(gw.records, gw.setup.bbox, gw.bins, W, H,
+                                True)
+    b = gw.bins
+    kernels["rasterize_pixels_wireframe"] = dict(
+        source="kanirenderer_tpu_torch/csrc/raster_pixels.cu",
+        replaces="kanirenderer_tpu/ops/raster_pallas.py:831",
+        max_abs_err=max(z_err, v_err), ms=ms2w, plain_ms=pms2w,
+        bytes=nbytes(gw.records, gw.setup.bbox, b.start, b.count, b.chunk)
+        + px_out,
+        ops=hits2w * OPS_COVER + cov2w * OPS_WIRE
+        + int(k2w.mask.sum()) * OPS_K2_PIXEL)
+    del k2w, p2w
+
+    # ---- phase 8: K3 against its plain version ----
+    k3_err, k3_ms = 0.0, {}
+    for wire, gg in ((False, g), (True, gw)):
+        st = gg.setup
+        k3 = rc.rasterize(st.setup, st.bbox, gg.bins, W, H, wire, thresh)
+        p3 = rc.rasterize_plain(st.setup, st.bbox, gg.bins, W, H, wire,
+                                thresh)
+        torch.cuda.synchronize()
+        same = k3.tri == p3.tri
+        agree = same.float().mean().item()
+        z_err = (k3.z - p3.z)[same].abs().max().item()
+        b_err = (k3.bary - p3.bary)[same].abs().max().item()
+        k3_ms[wire] = cuda_ms(lambda: rc.rasterize(
+            st.setup, st.bbox, gg.bins, W, H, wire, thresh), 20)
+        pms3 = cuda_ms(lambda: rc.rasterize_plain(
+            st.setup, st.bbox, gg.bins, W, H, wire, thresh), 2)
+        print(f"phase 8 K3 {W}x{H} wireframe={wire}: tri agrees {agree:.5f} "
+              f"(tol {K3_TRI_FRAC}), z {z_err:.3g} (tol {K3_Z_TOL}), bary "
+              f"{b_err:.3g} (tol {K3_BARY_TOL}), covered "
+              f"{(k3.tri >= 0).float().mean().item():.3f}, "
+              f"{k3_ms[wire]:.3f} ms vs plain {pms3:.1f} ms", flush=True)
+        if not (agree >= K3_TRI_FRAC and z_err <= K3_Z_TOL
+                and b_err <= K3_BARY_TOL):
+            fail(f"K3 (wireframe={wire}) disagrees with its plain version")
+        k3_err = max(k3_err, z_err, b_err)
+        if not wire:
+            hits3, _ = raster_work(st.setup, st.bbox, gg.bins, W, H, False)
+            bb = gg.bins
+            kernels["rasterize_visibility"] = dict(
+                source="kanirenderer_tpu_torch/csrc/raster_visibility.cu",
+                replaces="kanirenderer_tpu/ops/raster_pallas.py:410",
+                ms=k3_ms[wire], plain_ms=pms3,
+                bytes=nbytes(st.setup, st.bbox, bb.start, bb.count, bb.chunk,
+                             k3.tri, k3.z, k3.bary),
+                ops=hits3 * OPS_COVER + int((k3.tri >= 0).sum())
+                * OPS_K3_PIXEL)
+        del k3, p3
+    kernels["rasterize_visibility"]["max_abs_err"] = k3_err
+
+    # ---- phase 9: small frame of every other configuration ----
+    for name, mcfg in flythrough.MODE_CONFIGS.items():
+        frac8, mean = small_frame(dataclasses.replace(
+            mcfg, width=256, height=192, shadow_dim=256))
+        print(f"phase 9 small frame {name} cuda vs cpu: >8 levels "
+              f"{frac8:.5f} (tol {GOLD_FRAC8}), mean {mean:.4f} "
+              f"(tol {GOLD_MEAN})", flush=True)
+        if not (frac8 < GOLD_FRAC8 and mean < GOLD_MEAN):
+            fail(f"small {name} frame through the kernels disagrees with "
+                 "the CPU path")
+
+    # ---- phase 10: every mode on the main path ----
+    n = WARMUP + MODE_FRAMES
+    cams = flythrough.camera_path(n)
+    medians = {}
+    for name, mcfg in flythrough.MODE_CONFIGS.items():
+        rc.reset_launch_counts()
+        ms, overflow = [], 0
+        for out, t in flythrough.fly(scene, mcfg, cams, lights):
+            ms.append(t)
+            overflow = max(overflow, int(out.raster_overflow))
+        counts = dict(rc.launch_counts)
+        wire = mcfg.mode == RenderMode.WIREFRAME
+        want = {"rasterize_depth": n * (mcfg.mode in SHADOW_MODES),
+                "rasterize_pixels": 0 if wire else n,
+                "rasterize_pixels_wireframe": n if wire else 0,
+                "rasterize_visibility": 0}
+        img = out.image
+        p = mcfg.present_scale
+        dtype = torch.float16 if mcfg.hdr else torch.uint8
+        std = image_std(img)
+        medians[name] = statistics.median(ms[WARMUP:])
+        print(f"phase 10 {name}: median {medians[name]:.2f} ms (min "
+              f"{min(ms[WARMUP:]):.2f}, max {max(ms[WARMUP:]):.2f}) over "
+              f"{MODE_FRAMES} frames, launches {counts}, overflow "
+              f"{overflow}, image {tuple(img.shape)} {img.dtype} std "
+              f"{std:.2f}", flush=True)
+        if counts != want:
+            fail(f"{name}: launch counts {counts} != {want}")
+        if overflow:
+            fail(f"{name}: binning dropped {overflow} chunks")
+        if (tuple(img.shape) != (H // p, W // p, 3) or img.dtype != dtype
+                or std < 1.0):
+            fail(f"{name}: implausible frame")
+        if wire:
+            kernels["rasterize_pixels_wireframe"]["launches"] = \
+                counts["rasterize_pixels_wireframe"]
+    print(f"per-mode frame medians ms {json.dumps(medians)} on {card}",
+          flush=True)
+
+    # ---- phase 11: the visibility entry ----
+    rc.reset_launch_counts()
+    covered = []
+    for cam in cams[WARMUP:]:
+        st_cam = frame_state(scene, camera_state(cam.position, cam.yaw,
+                                                 cam.pitch, dev), lights)
+        for mcfg in (cfg, wcfg):
+            st = frame_geometry(scene, st_cam, mcfg).setup
+            vis = rc.rasterize_config(st, mcfg,
+                                      mcfg.mode == RenderMode.WIREFRAME)
+            covered.append((vis.tri >= 0).float().mean().item())
+    torch.cuda.synchronize()
+    counts = dict(rc.launch_counts)
+    print(f"phase 11 rasterize_config: {MODE_FRAMES} poses x wireframe "
+          f"False/True, launches {counts}, covered "
+          f"{min(covered):.3f}-{max(covered):.3f}", flush=True)
+    if counts["rasterize_visibility"] != 2 * MODE_FRAMES \
+            or min(covered) <= 0.0:
+        fail("the visibility entry did not rasterize through K3")
+    kernels["rasterize_visibility"]["launches"] = \
+        counts["rasterize_visibility"]
 
     order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "ms", "plain_ms")
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
-    print(json.dumps({"kernels": [{f: k[f] for f in order}
-                                  for k in kernels]}), flush=True)
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+    rows = []
+    for name, k in kernels.items():
+        k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"))
+        # No single PyTorch call rasterizes triangles.
+        k.update(name=name, route="cuda", library_ms=None)
+        if not k.get("launches"):
+            fail(f"{name} was never launched on its path")
+        rows.append({f: k[f] for f in order})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,24 @@
 """kanirenderer_tpu_torch — the renderer of ``kanirenderer_tpu`` on PyTorch
 and CUDA.
 
-The port renders the LIT_SHADOW frame (fresh 2048² shadow map, Blinn-Phong
-with 3×3 PCF, sRGB surface) through two hand-written CUDA kernels for
-Hopper (csrc/): the depth-only shadow raster and the fused visibility
-raster + interpolation.  Everything else is plain PyTorch.  The JAX
+The port renders every mode of the JAX package's ``render_frame`` —
+UNLIT, LIT, LIT_SHADOW (fresh shadow map, 3×3 PCF), WIREFRAME, DEBUG, with
+HDR, the deferred path and ``present_scale`` — through hand-written CUDA
+kernels for Hopper (csrc/): the depth-only shadow raster, the fused
+visibility raster + interpolation with its wireframe variant, and the
+visibility-buffer raster.  Everything else is plain PyTorch.  The JAX
 package stays the reference; ``core.types.from_reference`` carries its
 scenes and states across for the tests.
 
-Entry points: ``passes.frame.render_frame`` and ``flythrough.fly``.
+Entry points: ``passes.frame.render_frame``, ``flythrough.fly`` and
+``ops.raster_cuda.rasterize``.  They build on the CUDA device unless given
+``device="cpu"``.
 """
 
 from kanirenderer_tpu_torch.core.types import (  # noqa: F401
     CHUNK_SIZE,
     CameraState,
+    DebugTexture,
     DirectionalLight,
     FrameState,
     Lights,

@@ -8,6 +8,10 @@ which the caller chooses when it builds them.
 Scene layout: all meshes are packed into flat arrays, triangles are
 Morton-sorted at build time and padded to a multiple of ``CHUNK_SIZE`` so
 binning works on chunk-granularity bounding boxes (ops/binning.py).
+
+Every function here that builds tensors from host values places them on
+the CUDA device unless the caller names another (``device="cpu"``, as the
+tests do).  Without a card such a call fails; it never falls back.
 """
 
 from __future__ import annotations
@@ -127,12 +131,14 @@ class RenderConfig:
     """Static render settings; the fields of the JAX package's RenderConfig.
 
     The port reads width, height, mode, hdr, fovy_deg, znear, zfar,
-    shadow_dim, the shadow biases, clear_color, output_u8, present_scale,
-    tile_w/tile_h/shadow_tile_h (one CUDA block per tile, one thread per
-    pixel, so tile_w·tile_h is the block size) and the per-tile chunk caps
-    max_chunks_per_tile / shadow_chunks_per_tile.  The remaining fields
-    tune the TPU path and are carried only so a configuration reads the
-    same in both packages.
+    shadow_dim, the shadow biases, clear_color, debug_texture, deferred,
+    output_u8, present_scale, wire_thresh_px, tile_w/tile_h/shadow_tile_h
+    (one CUDA block per tile, one thread per pixel, so tile_w·tile_h is
+    the block size) and the per-tile chunk caps max_chunks_per_tile /
+    shadow_chunks_per_tile.  cache_shadow_map must stay False: cached
+    shadow maps are not ported.  The remaining fields tune the TPU path
+    and are carried only so a configuration reads the same in both
+    packages.
     """
 
     width: int = 1440
@@ -172,7 +178,7 @@ def _f32(x, device) -> Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
-def default_lights(num_point_lights: int = 1, device="cpu") -> Lights:
+def default_lights(num_point_lights: int = 1, device="cuda") -> Lights:
     """Initial light rig (reference src/lib.rs:431-514)."""
     movable = MovableLight(
         position=_f32([0.0, 100.0, 0.0], device),
@@ -196,13 +202,13 @@ def default_lights(num_point_lights: int = 1, device="cpu") -> Lights:
     return Lights(movable=movable, points=points, directional=directional)
 
 
-def camera_state(position, yaw, pitch, device="cpu") -> CameraState:
+def camera_state(position, yaw, pitch, device="cuda") -> CameraState:
     """CameraState from host numbers (numpy or Python floats)."""
     return CameraState(position=_f32(position, device),
                        yaw=_f32(yaw, device), pitch=_f32(pitch, device))
 
 
-def default_camera(device="cpu") -> CameraState:
+def default_camera(device="cuda") -> CameraState:
     """Initial pose (reference src/lib.rs:382)."""
     return camera_state([0.0, 5.0, 10.0], np.deg2rad(np.float32(-90.0)),
                         np.deg2rad(np.float32(-20.0)), device)
@@ -224,7 +230,7 @@ def _to_tensor(x, device) -> Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
-def from_reference(obj, device="cpu"):
+def from_reference(obj, device="cuda"):
     """The JAX package's Scene / FrameState / Lights / CameraState (any
     NamedTuple of arrays) as the port's tensors on ``device``.
 

@@ -1,5 +1,5 @@
-// Shared pieces of the two tile raster kernels (raster_depth.cu,
-// raster_pixels.cu).
+// Shared pieces of the tile raster kernels (raster_depth.cu,
+// raster_pixels.cu, raster_visibility.cu).
 //
 // One CUDA block rasterizes one screen tile of tile_w x tile_h pixels with
 // one thread per pixel.  The block walks the tile's chunk list (ascending
@@ -48,6 +48,41 @@ __device__ __forceinline__ bool covers(const Planes& t, float X, float Y,
   *z = zz;
   return l0 >= 0.f && l1 >= 0.f && l2 >= 0.f && zz >= 0.f &&
          __fsub_rn(1.f, zz) >= 0.f;
+}
+
+// Distance of pixel centre (X, Y) to edge (a, b, c) in pixels, in the
+// order of the reference's wireframe coverage (raster_pallas.py:491-518):
+// d = (a*X + c)*g + (b*Y)*g with g = 1/sqrt(a^2 + b^2 + 1e-30).  g is
+// 1/sqrt in round-to-nearest (not the approximate rsqrtf), which is what
+// 1.0 / torch.sqrt computes on the card, so kernel and plain version agree
+// bit for bit.
+__device__ __forceinline__ float edge_dist(float a, float b, float c,
+                                           float X, float Y) {
+  const float n2 =
+      __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)), 1e-30f);
+  const float g = __fdiv_rn(1.f, __fsqrt_rn(n2));
+  return __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(a, X), c), g),
+                   __fmul_rn(__fmul_rn(b, Y), g));
+}
+
+// Wireframe coverage: the five-plane coverage of `covers` and a pixel
+// centre within `thresh` pixels of the nearest of the three edges.
+__device__ __forceinline__ bool covers_wire(const Planes& t, float X,
+                                            float Y, float thresh,
+                                            float* z) {
+  if (!covers(t, X, Y, z)) return false;
+  const float d0 = edge_dist(t.p0.x, t.p0.y, t.p0.z, X, Y);
+  const float d1 = edge_dist(t.p0.w, t.p1.x, t.p1.y, X, Y);
+  const float d2 = edge_dist(t.p1.z, t.p1.w, t.p2.x, X, Y);
+  return fminf(fminf(d0, d1), d2) <= thresh;
+}
+
+// Coverage in either mode, chosen at compile time.
+template <bool kWire>
+__device__ __forceinline__ bool covers_mode(const Planes& t, float X,
+                                            float Y, float thresh,
+                                            float* z) {
+  return kWire ? covers_wire(t, X, Y, thresh, z) : covers(t, X, Y, z);
 }
 
 struct ChunkStage {

@@ -2,7 +2,10 @@
 //
 // Replaces kanirenderer_tpu/ops/raster_pallas.py:759-1121 (`_fused_kernel`,
 // launched by `_run_fused`, :1124-1197, from `rasterize_pixels`,
-// :1218-1301), without its wireframe variant.
+// :1218-1301), both variants: kWire = false is K2, kWire = true is K2w,
+// the wireframe variant (coverage :831-858), which also requires the
+// pixel centre within wire_thresh pixels of an edge (raster_common.cuh
+// covers_wire).  Phase 2 is the same for both.
 //
 // Phase 1, per pixel: a (z, global triangle id) tournament over the tile's
 // chunks in ascending id with a strict `<`, so the lower id keeps a depth
@@ -17,7 +20,9 @@
 // staging latency on sparse tiles, FP32 edge evaluation on dense ones);
 // phase 2 reads 304 bytes per covered pixel, mostly from L2 since
 // neighbouring pixels share winners, and writes 96 bytes per pixel
-// (~200 MB per 1920x1080 frame).
+// (~200 MB per 1920x1080 frame).  K2w evaluates three more planes and
+// three correctly rounded 1/sqrt per triangle and pixel, and runs without
+// back-face culling upstream, so about twice the triangles reach it.
 //
 // Design: one block per tile, one thread per pixel, the tournament state
 // in two registers.  The TPU kernel's winner-run compaction and lane-LUT
@@ -39,12 +44,13 @@ __device__ __forceinline__ float plane_abc(float a, float b, float c,
   return __fadd_rn(__fadd_rn(__fmul_rn(a, X), __fmul_rn(b, Y)), c);
 }
 
+template <bool kWire>
 __global__ void raster_pixels_kernel(
     const float* __restrict__ records, const float4* __restrict__ bbox,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
     const int* __restrict__ chunk, float* __restrict__ z_out,
     float* __restrict__ vary_out, int* __restrict__ int_out, int width,
-    int height, int tiles_x, int tile_w, int tile_h) {
+    int height, int tiles_x, int tile_w, int tile_h, float wire_thresh) {
   __shared__ kani::ChunkStage s;
   const int tile = blockIdx.x;
   const int tx0 = (tile % tiles_x) * tile_w;
@@ -72,7 +78,8 @@ __global__ void raster_pixels_kernel(
         const int r = w * 32 + __ffs(m) - 1;
         m &= m - 1;
         float z;
-        if (kani::covers(s.tri[r], X, Y, &z) && z < best_z) {
+        if (kani::covers_mode<kWire>(s.tri[r], X, Y, wire_thresh, &z) &&
+            z < best_z) {
           best_z = z;
           best = cid * kani::kChunk + r;
         }
@@ -129,6 +136,22 @@ __global__ void raster_pixels_kernel(
   int_out[5 * hw + p] = best;
 }
 
+template <bool kWire>
+int launch(const float* records, const float* bbox, const int* tile_start,
+           const int* tile_count, const int* chunk, float* z_out,
+           float* vary_out, int* int_out, int width, int height, int tiles_x,
+           int num_tiles, int tile_w, int tile_h, float wire_thresh,
+           void* stream) {
+  if (num_tiles > 0) {
+    raster_pixels_kernel<kWire><<<num_tiles, tile_w * tile_h, 0,
+                                  (cudaStream_t)stream>>>(
+        records, reinterpret_cast<const float4*>(bbox), tile_start,
+        tile_count, chunk, z_out, vary_out, int_out, width, height, tiles_x,
+        tile_w, tile_h, wire_thresh);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int kani_rasterize_pixels(const float* records, const float* bbox,
@@ -138,12 +161,17 @@ extern "C" int kani_rasterize_pixels(const float* records, const float* bbox,
                                      int* int_out, int width, int height,
                                      int tiles_x, int num_tiles, int tile_w,
                                      int tile_h, void* stream) {
-  if (num_tiles > 0) {
-    raster_pixels_kernel<<<num_tiles, tile_w * tile_h, 0,
-                           (cudaStream_t)stream>>>(
-        records, reinterpret_cast<const float4*>(bbox), tile_start,
-        tile_count, chunk, z_out, vary_out, int_out, width, height, tiles_x,
-        tile_w, tile_h);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(records, bbox, tile_start, tile_count, chunk, z_out,
+                       vary_out, int_out, width, height, tiles_x, num_tiles,
+                       tile_w, tile_h, 0.f, stream);
+}
+
+extern "C" int kani_rasterize_pixels_wireframe(
+    const float* records, const float* bbox, const int* tile_start,
+    const int* tile_count, const int* chunk, float* z_out, float* vary_out,
+    int* int_out, int width, int height, int tiles_x, int num_tiles,
+    int tile_w, int tile_h, float wire_thresh, void* stream) {
+  return launch<true>(records, bbox, tile_start, tile_count, chunk, z_out,
+                      vary_out, int_out, width, height, tiles_x, num_tiles,
+                      tile_w, tile_h, wire_thresh, stream);
 }

@@ -108,7 +108,7 @@ class SceneBuilder:
     textures: list = field(default_factory=list)   # MaterialTextures per slot
     object_transforms: list = field(default_factory=list)  # (pos, quat)
 
-    def build(self, device="cpu") -> Scene:
+    def build(self, device="cuda") -> Scene:
         def cat(parts, empty):
             return np.concatenate(parts) if parts else empty
 

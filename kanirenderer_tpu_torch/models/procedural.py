@@ -69,7 +69,7 @@ def _grid_quads(origin, du, dv, nu, nv, vbase):
 
 def sponza_standin_scene(target_tris: int = 262_000, num_materials: int = 25,
                          tex_size: int = 256, seed: int = 0,
-                         device="cpu") -> Scene:
+                         device="cuda") -> Scene:
     """Courtyard with floor, ceiling, walls and 24 columns: about
     ``target_tris`` triangles over ``num_materials`` checker/noise-normal
     materials.  Deterministic in ``seed``."""

@@ -1,21 +1,32 @@
-"""The two tile raster kernels: wrappers, launch counts and plain versions.
+"""The tile raster kernels: wrappers, launch counts and plain versions.
 
 Counterpart of ``kanirenderer_tpu/ops/raster_pallas.py``:
 
 * ``rasterize_depth`` (K1, csrc/raster_depth.cu) — depth-only raster of
   the shadow map, the reference's ``_raster_kernel`` with depth_only=True;
 * ``rasterize_pixels`` (K2, csrc/raster_pixels.cu) — the fused visibility
-  raster + record interpolation, the reference's ``_fused_kernel``.
+  raster + record interpolation, the reference's ``_fused_kernel``; with
+  ``wireframe=True`` its wireframe variant K2w (launch count
+  ``rasterize_pixels_wireframe``);
+* ``rasterize`` (K3, csrc/raster_visibility.cu) — the visibility buffer
+  (triangle id, depth, barycentrics), the reference's ``_raster_kernel``
+  with depth_only=False, with or without wireframe coverage.
 
-Both take binned inputs (ops/binning.bin_tiles).  On a CUDA tensor a
+All take binned inputs (ops/binning.bin_tiles).  On a CUDA tensor a
 wrapper launches its kernel and counts the launch in ``launch_counts``; on
 a CPU tensor it runs its plain PyTorch version (``*_plain``), which
 computes the same function with the same floating-point order and serves
 as the oracle the kernels are checked against on the card.
 
-The kernels are built at first use with ``nvcc`` for sm_90a into one
-shared library with a plain C interface under ``_build/`` (listed in
-.gitignore), named by a hash of the sources, and loaded with ctypes.
+Wireframe coverage keeps a pixel when it passes the five-plane coverage
+and its centre lies within ``wire_thresh`` pixels of the nearest edge,
+d = (a·X + c)·g + (b·Y)·g with g = 1/sqrt(a² + b² + 1e-30), the order of
+the reference kernel (raster_pallas.py:491-518).
+
+The kernels are built at first use with ``nvcc`` for sm_90a, one compiler
+process per source started together, into one shared library with a plain
+C interface under ``_build/`` (listed in .gitignore), named by a hash of
+the sources, and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -30,23 +41,25 @@ from pathlib import Path
 
 import torch
 
-from kanirenderer_tpu_torch.core.types import CHUNK_SIZE
-from kanirenderer_tpu_torch.ops.binning import ChunkBins
+from kanirenderer_tpu_torch.core.types import CHUNK_SIZE, RenderConfig
+from kanirenderer_tpu_torch.ops.binning import ChunkBins, bin_tiles
 from kanirenderer_tpu_torch.ops.interpolate import (FAT_LANES, LSUM0, PAR0,
                                                     REC0, PixelBuffer)
-from kanirenderer_tpu_torch.ops.vertex import NS, USED
+from kanirenderer_tpu_torch.ops.raster_xla import VisBuffer
+from kanirenderer_tpu_torch.ops.vertex import NS, USED, TriangleSetup
 
 Tensor = torch.Tensor
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches since the last reset, by wrapper name.
-launch_counts = {"rasterize_depth": 0, "rasterize_pixels": 0}
+launch_counts = {"rasterize_depth": 0, "rasterize_pixels": 0,
+                 "rasterize_pixels_wireframe": 0, "rasterize_visibility": 0}
 
 _lib = None
 build_info: dict = {}
@@ -67,6 +80,8 @@ def _nvcc() -> str:
 
 
 def _build() -> Path:
+    """Compile every csrc/*.cu to an object, one nvcc process per source,
+    all started together, and link them into one shared library."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
@@ -78,15 +93,32 @@ def _build() -> Path:
         build_info.update(seconds=0.0, cached=True)
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = []
+    for src, proc in zip(sources, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+        logs.append(err)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
     os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
     build_info.update(seconds=time.perf_counter() - t0, cached=False,
-                      ptxas=proc.stderr)
+                      ptxas="".join(logs))
     return lib
 
 
@@ -95,11 +127,17 @@ def load_kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.kani_rasterize_depth.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-        lib.kani_rasterize_depth.restype = i32
         lib.kani_rasterize_pixels.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
-        lib.kani_rasterize_pixels.restype = i32
+        lib.kani_rasterize_pixels_wireframe.argtypes = \
+            [ptr] * 8 + [i32] * 6 + [f32, ptr]
+        lib.kani_rasterize_visibility.argtypes = \
+            [ptr] * 8 + [i32] * 7 + [f32, ptr]
+        for fn in (lib.kani_rasterize_depth, lib.kani_rasterize_pixels,
+                   lib.kani_rasterize_pixels_wireframe,
+                   lib.kani_rasterize_visibility):
+            fn.restype = i32
         _lib = lib
     return _lib
 
@@ -163,26 +201,72 @@ def rasterize_depth(setup: Tensor, bbox: Tensor, bins: ChunkBins,
 
 
 def rasterize_pixels(records: Tensor, bbox: Tensor, bins: ChunkBins,
-                     width: int, height: int) -> PixelBuffer:
-    """K2: visibility + interpolation → PixelBuffer (with ``tid``).
-    ``records``: (T, 76) f32 from ops/interpolate.build_tri_records_corners."""
+                     width: int, height: int, wireframe: bool = False,
+                     wire_thresh: float = 0.7) -> PixelBuffer:
+    """K2 (K2w with ``wireframe``): visibility + interpolation →
+    PixelBuffer (with ``tid``).  ``records``: (T, 76) f32 from
+    ops/interpolate.build_tri_records_corners."""
     if records.device.type == "cpu":
-        return rasterize_pixels_plain(records, bbox, bins, width, height)
+        return rasterize_pixels_plain(records, bbox, bins, width, height,
+                                      wireframe, wire_thresh)
     _check_launch(records, FAT_LANES, bbox, bins, width, height)
     lib = load_kernels()
     dev = records.device
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     vary = torch.empty((USED, height, width), dtype=torch.float32, device=dev)
     ints = torch.empty((6, height, width), dtype=torch.int32, device=dev)
-    err = lib.kani_rasterize_pixels(
-        *(t.data_ptr() for t in (records, bbox, bins.start, bins.count,
-                                 bins.chunk, z, vary, ints)),
-        width, height, bins.tiles_x, bins.tiles_x * bins.tiles_y,
-        bins.tile_w, bins.tile_h, _stream())
-    launch_counts["rasterize_pixels"] += 1
+    args = [*(t.data_ptr() for t in (records, bbox, bins.start, bins.count,
+                                      bins.chunk, z, vary, ints)),
+            width, height, bins.tiles_x, bins.tiles_x * bins.tiles_y,
+            bins.tile_w, bins.tile_h]
+    if wireframe:
+        name = "rasterize_pixels_wireframe"
+        err = lib.kani_rasterize_pixels_wireframe(*args, wire_thresh,
+                                                  _stream())
+    else:
+        name = "rasterize_pixels"
+        err = lib.kani_rasterize_pixels(*args, _stream())
+    launch_counts[name] += 1
     if err:
-        raise RuntimeError(f"rasterize_pixels launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return _pixel_buffer(z, vary, ints, bins)
+
+
+def rasterize(setup: Tensor, bbox: Tensor, bins: ChunkBins, width: int,
+              height: int, wireframe: bool = False,
+              wire_thresh: float = 0.7) -> VisBuffer:
+    """K3: visibility buffer (triangle id, depth, barycentrics) of the
+    (T, 16) setup rows from ops/vertex.TriangleSetup."""
+    if setup.device.type == "cpu":
+        return rasterize_plain(setup, bbox, bins, width, height, wireframe,
+                               wire_thresh)
+    _check_launch(setup, NS, bbox, bins, width, height)
+    lib = load_kernels()
+    dev = setup.device
+    tri = torch.empty((height, width), dtype=torch.int32, device=dev)
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    bary = torch.empty((height, width, 2), dtype=torch.float32, device=dev)
+    err = lib.kani_rasterize_visibility(
+        *(t.data_ptr() for t in (setup, bbox, bins.start, bins.count,
+                                 bins.chunk, tri, z, bary)),
+        width, height, bins.tiles_x, bins.tiles_x * bins.tiles_y,
+        bins.tile_w, bins.tile_h, int(wireframe), wire_thresh, _stream())
+    launch_counts["rasterize_visibility"] += 1
+    if err:
+        raise RuntimeError(
+            f"rasterize_visibility launch failed: CUDA error {err}")
+    return VisBuffer(tri=tri, z=z, bary=bary)
+
+
+def rasterize_config(st: TriangleSetup, config: RenderConfig,
+                     wireframe: bool = False) -> VisBuffer:
+    """Bin ``st`` on the main view's tile grid and rasterize it with K3,
+    as ``raster_pallas.rasterize(st, config, wireframe)``."""
+    cfg = config
+    bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w, cfg.tile_h,
+                     cfg.max_chunks_per_tile)
+    return rasterize(st.setup, st.bbox, bins, cfg.width, cfg.height,
+                     wireframe, cfg.wire_thresh_px)
 
 
 def _pixel_buffer(z, vary, ints, bins) -> PixelBuffer:
@@ -215,10 +299,12 @@ def _pairs(bins: ChunkBins):
 
 
 def _eval_pairs(rows: Tensor, bbox: Tensor, tile: Tensor, chunk: Tensor,
-                bins: ChunkBins, width: int, height: int):
+                bins: ChunkBins, width: int, height: int,
+                wire_thresh: float | None = None):
     """Coverage and depth of every triangle of each pair's chunk at every
     pixel of its tile → (covered (P,128,px), z (P,128,px), pixel (P,px)),
-    pixel = row-major index, or width·height outside the raster."""
+    pixel = row-major index, or width·height outside the raster.  With
+    ``wire_thresh``, coverage is the wireframe one."""
     dev = rows.device
     tw, th = bins.tile_w, bins.tile_h
     lpix = torch.arange(tw * th, device=dev)
@@ -241,6 +327,15 @@ def _eval_pairs(rows: Tensor, bbox: Tensor, tile: Tensor, chunk: Tensor,
     l0, l1, l2, z = plane(0), plane(3), plane(6), plane(9)
     covered = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (z >= 0) \
         & (1.0 - z >= 0) & hit[..., None]
+    if wire_thresh is not None:
+        def dist(k):  # (a·X + c)·g + (b·Y)·g, raster_common.cuh edge_dist
+            a, bb = r[..., k], r[..., k + 1]
+            g = (1.0 / torch.sqrt(a * a + bb * bb + 1e-30))[..., None]
+            return (a[..., None] * X + r[..., k + 2, None]) * g \
+                + (bb[..., None] * Y) * g
+
+        d = torch.minimum(torch.minimum(dist(0), dist(3)), dist(6))
+        covered &= d <= wire_thresh
     inside = (x < width) & (y < height)
     pixel = torch.where(inside, y * width + x, width * height)
     return covered, z, pixel
@@ -259,15 +354,15 @@ def rasterize_depth_plain(setup: Tensor, bbox: Tensor, bins: ChunkBins,
     return out[:-1].reshape(dim, dim)
 
 
-def rasterize_pixels_plain(records: Tensor, bbox: Tensor, bins: ChunkBins,
-                           width: int, height: int) -> PixelBuffer:
-    """Plain PyTorch K2 (same inputs and result as ``rasterize_pixels``).
-
-    Phase 1 is a lexicographic min of (z, triangle id) over candidates with
-    z < 1: each pair reduces its chunk to (z, lowest id at that z), then the
-    pixel minimum of z is scattered and the lowest id among the pairs that
-    reach it — the strict-< ascending tournament of the kernel."""
-    dev = records.device
+def _tournament(rows: Tensor, bbox: Tensor, bins: ChunkBins, width: int,
+                height: int, wire_thresh: float | None):
+    """Phase 1 of K2/K3: per pixel the lexicographic min of (z, triangle
+    id) over candidates with z < 1 → (tid, z), each (H·W,), −1 and 1.0
+    where nothing wins.  Each pair reduces its chunk to (z, lowest id at
+    that z), then the pixel minimum of z is scattered and the lowest id
+    among the pairs that reach it — the strict-< ascending tournament of
+    the kernels."""
+    dev = rows.device
     hw = width * height
     tile, chunk = _pairs(bins)
     zbuf = torch.ones(hw + 1, dtype=torch.float32, device=dev)
@@ -275,8 +370,8 @@ def rasterize_pixels_plain(records: Tensor, bbox: Tensor, bins: ChunkBins,
     lane = torch.arange(CHUNK_SIZE, device=dev)[None, :, None]
     for s in range(0, tile.shape[0], PAIR_BATCH):
         ch = chunk[s:s + PAIR_BATCH]
-        cov, z, pix = _eval_pairs(records, bbox, tile[s:s + PAIR_BATCH], ch,
-                                  bins, width, height)
+        cov, z, pix = _eval_pairs(rows, bbox, tile[s:s + PAIR_BATCH], ch,
+                                  bins, width, height, wire_thresh)
         zc = torch.where(cov & (z < 1.0), z, 2.0)
         pz = zc.amin(1)
         k = torch.where(zc == pz[:, None], lane, CHUNK_SIZE).amin(1)
@@ -289,14 +384,29 @@ def rasterize_pixels_plain(records: Tensor, bbox: Tensor, bins: ChunkBins,
         cand = torch.where((pz < 1.0) & (pz == zbuf[pix]), pid, big)
         tbuf.scatter_reduce_(0, pix.reshape(-1), cand.reshape(-1), "amin")
     tid = torch.where(tbuf[:-1] == big, -1, tbuf[:-1])
-    z_out = zbuf[:-1]
+    return tid, zbuf[:-1]
+
+
+def _pixel_centres(width: int, height: int, device):
+    p = torch.arange(width * height, device=device)
+    X = (p % width).to(torch.float32) + 0.5
+    Y = torch.div(p, width, rounding_mode="floor").to(torch.float32) + 0.5
+    return X, Y
+
+
+def rasterize_pixels_plain(records: Tensor, bbox: Tensor, bins: ChunkBins,
+                           width: int, height: int, wireframe: bool = False,
+                           wire_thresh: float = 0.7) -> PixelBuffer:
+    """Plain PyTorch K2/K2w (same inputs and result as
+    ``rasterize_pixels``): the phase-1 tournament, then phase 2."""
+    dev = records.device
+    tid, z_out = _tournament(records, bbox, bins, width, height,
+                             wire_thresh if wireframe else None)
 
     # Phase 2: interpolate the winner's record at the pixel centre.
     covered = tid >= 0
     rec = records[tid.clamp(min=0).to(torch.int64)]        # (HW, 76)
-    p = torch.arange(hw, device=dev)
-    X = (p % width).to(torch.float32) + 0.5
-    Y = torch.div(p, width, rounding_mode="floor").to(torch.float32) + 0.5
+    X, Y = _pixel_centres(width, height, dev)
 
     def plane(k):  # ((a·X) + (b·Y)) + c, the reference's phase-2 order
         return (rec[:, k] * X + rec[:, k + 1] * Y) + rec[:, k + 2]
@@ -317,3 +427,27 @@ def rasterize_pixels_plain(records: Tensor, bbox: Tensor, bins: ChunkBins,
     return _pixel_buffer(z_out.reshape(height, width),
                          vary.T.reshape(USED, height, width),
                          ints.reshape(6, height, width), bins)
+
+
+def rasterize_plain(setup: Tensor, bbox: Tensor, bins: ChunkBins, width: int,
+                    height: int, wireframe: bool = False,
+                    wire_thresh: float = 0.7) -> VisBuffer:
+    """Plain PyTorch K3 (same inputs and result as ``rasterize``): the
+    phase-1 tournament, then the winner's barycentrics from its phase-1
+    plane values, lsum = (l0 + l1) + l2 (raster_pallas.py:557-566)."""
+    tid, z = _tournament(setup, bbox, bins, width, height,
+                         wire_thresh if wireframe else None)
+    r = setup[tid.clamp(min=0).to(torch.int64)]            # (HW, 16)
+    X, Y = _pixel_centres(width, height, setup.device)
+
+    def plane(k):  # (a·X + c) + b·Y, the kernels' order
+        return (r[:, k] * X + r[:, k + 2]) + r[:, k + 1] * Y
+
+    l0, l1, l2 = plane(0), plane(3), plane(6)
+    lsum = (l0 + l1) + l2
+    lsafe = torch.where(lsum != 0.0, lsum, 1e-30)
+    bary = torch.stack([l1 / lsafe, l2 / lsafe], -1)
+    bary = torch.where((tid >= 0)[:, None], bary, 0.0)
+    return VisBuffer(tri=tid.reshape(height, width),
+                     z=z.reshape(height, width),
+                     bary=bary.reshape(height, width, 2))

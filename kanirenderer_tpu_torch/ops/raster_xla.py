@@ -7,6 +7,8 @@ plain versions (ops/raster_cuda) against it.  Coverage: the three edge
 functions ≥ 0 and the screen-affine depth in [0, 1]; the depth test is
 Less against a buffer cleared to 1.0, so the lowest triangle id wins a
 tie.  Planes are evaluated as a·X + b·Y + c, the reference oracle's order.
+Wireframe coverage uses the reference oracle's edge distance
+l / max(sqrt(a² + b²), 1e-20) (raster_xla.py:98-105), not the kernels'.
 """
 
 from __future__ import annotations
@@ -43,9 +45,18 @@ def _grid(width: int, height: int, device):
     return xs[None, :], ys[:, None]
 
 
+def _edge_dist(l: Tensor, chunk: Tensor, k: int) -> Tensor:
+    g = torch.sqrt(chunk[:, k] ** 2 + chunk[:, k + 1] ** 2)
+    return l / torch.clamp(g, min=1e-20)[:, None, None]
+
+
 def rasterize_xla(setup: Tensor, width: int, height: int,
+                  wireframe: bool = False, wire_thresh: float = 0.7,
                   batch: int = 16) -> VisBuffer:
-    """Visibility buffer of the (T, 16) setup rows (ops/vertex.py)."""
+    """Visibility buffer of the (T, 16) setup rows (ops/vertex.py).
+
+    ``wireframe``: keep only pixels within ``wire_thresh`` pixels of an
+    edge of the covering triangle (PolygonMode::Line)."""
     dev = setup.device
     X, Y = _grid(width, height, dev)
     zbuf = torch.ones((height, width), dtype=torch.float32, device=dev)
@@ -53,7 +64,13 @@ def rasterize_xla(setup: Tensor, width: int, height: int,
     b1 = torch.zeros((height, width), dtype=torch.float32, device=dev)
     b2 = torch.zeros((height, width), dtype=torch.float32, device=dev)
     for base in range(0, setup.shape[0], batch):
-        l0, l1, l2, z, covered = _planes(setup[base:base + batch], X, Y)
+        chunk = setup[base:base + batch]
+        l0, l1, l2, z, covered = _planes(chunk, X, Y)
+        if wireframe:
+            d = torch.minimum(torch.minimum(_edge_dist(l0, chunk, 0),
+                                            _edge_dist(l1, chunk, 3)),
+                              _edge_dist(l2, chunk, 6))
+            covered = covered & (d <= wire_thresh)
         zc = torch.where(covered, z, float("inf"))
         best = zc.argmin(0)                  # first minimum: lowest id
         pick = best[None]

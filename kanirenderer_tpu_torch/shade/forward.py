@@ -1,5 +1,7 @@
-"""Forward Blinn-Phong shading with PCF shadows (PyTorch counterpart of
-``shade_lit`` in ``kanirenderer_tpu/shade/forward.py``).
+"""Forward shading of the render modes (PyTorch counterpart of
+``kanirenderer_tpu/shade/forward.py``): ``shade_lit`` (Blinn-Phong, with
+3×3 PCF shadows for LIT_SHADOW, without for LIT, Reinhard or ACES),
+``shade_unlit`` and ``shade_wireframe``.
 
 Colours and vectors are channel-planar (3, H, W), scalars (H, W).  The
 lighting model is the reference's (src/shader.wgsl:163-262): point-light
@@ -68,6 +70,18 @@ def sample_materials(scene: Scene, pix: PixelBuffer) -> tuple[Tensor, Tensor]:
     return sample_materials_combined(scene.tex_combined, pix.blk_base,
                                      pix.blk_w, pix.tex_w, pix.tex_h,
                                      pix.varyings[15], pix.varyings[16])
+
+
+def shade_unlit(scene: Scene, pix: PixelBuffer) -> Tensor:
+    """Diffuse sample + Reinhard (reference src/unlit_shader.wgsl:97-103)."""
+    object_color, _ = sample_materials(scene, pix)
+    return reinhard_tonemap(object_color)
+
+
+def shade_wireframe(pix: PixelBuffer) -> Tensor:
+    """Constant white (reference src/shader_wireframe.wgsl:140-144)."""
+    return torch.ones((3,) + tuple(pix.mask.shape), dtype=torch.float32,
+                      device=pix.mask.device)
 
 
 def _blinn_phong(tangent_normal: Tensor, light_dir: Tensor, view_dir: Tensor,

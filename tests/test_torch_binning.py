@@ -27,10 +27,10 @@ W, H, D = 256, 192, 256
 @pytest.fixture(scope="module")
 def geometry():
     scene = sponza_standin_scene(target_tris=6000, num_materials=4,
-                                 tex_size=32)
+                                 tex_size=32, device="cpu")
     state = frame_state(scene, camera_state([-900.0, 180.0, 0.0], 0.0,
-                                            np.deg2rad(-5.0)),
-                        default_lights())
+                                            np.deg2rad(-5.0), "cpu"),
+                        default_lights(device="cpu"))
     return frame_geometry(scene, state,
                           RenderConfig(width=W, height=H, shadow_dim=D))
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1, K2, K2w, K3) against their plain PyTorch
+versions, on the card.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The GPU machine has no
 JAX, so run them without the suite's conftest (which imports JAX):
@@ -16,8 +17,8 @@ import pytest
 import torch
 
 from kanirenderer_tpu_torch.core.types import (CHUNK_SIZE, RenderConfig,
-                                               camera_state, default_lights,
-                                               frame_state)
+                                               RenderMode, camera_state,
+                                               default_lights, frame_state)
 from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
 from kanirenderer_tpu_torch.ops import raster_cuda as rc
 from kanirenderer_tpu_torch.ops.binning import bin_tiles
@@ -28,8 +29,7 @@ from kanirenderer_tpu_torch.passes.frame import frame_geometry
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture(scope="module")
-def geometry():
+def _geometry(mode):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     dev = torch.device("cuda", 0)
@@ -38,8 +38,25 @@ def geometry():
     state = frame_state(scene, camera_state([-900.0, 180.0, 0.0], 0.0,
                                             np.deg2rad(-5.0), dev),
                         default_lights(device=dev))
-    cfg = RenderConfig(width=256, height=192, shadow_dim=256)
+    cfg = RenderConfig(width=256, height=192, shadow_dim=256, mode=mode)
     return frame_geometry(scene, state, cfg), cfg
+
+
+@pytest.fixture(scope="module")
+def geometry():
+    return _geometry(RenderMode.LIT_SHADOW)
+
+
+@pytest.fixture(scope="module")
+def wire_geometry():
+    """WIREFRAME geometry: the camera setup does not cull."""
+    return _geometry(RenderMode.WIREFRAME)
+
+
+def _assert_pixels_equal(k, p):
+    for f in ("tid", "mask", "z", "varyings", "mat_id", "tex_w", "tex_h",
+              "blk_base", "blk_w"):
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
 
 
 def test_depth_kernel_matches_plain(geometry):
@@ -71,6 +88,35 @@ def test_pixels_kernel_matches_plain(geometry):
         assert torch.equal(getattr(k, f)[same], getattr(p, f)[same]), f
 
 
+def test_wireframe_kernel_matches_plain(wire_geometry):
+    g, cfg = wire_geometry
+    W, H = cfg.width, cfg.height
+    before = rc.launch_counts["rasterize_pixels_wireframe"]
+    k = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H,
+                            wireframe=True)
+    assert rc.launch_counts["rasterize_pixels_wireframe"] == before + 1
+    p = rc.rasterize_pixels_plain(g.records, g.setup.bbox, g.bins, W, H,
+                                  wireframe=True)
+    torch.cuda.synchronize()
+    assert 0.2 < k.mask.float().mean().item() < 0.8
+    _assert_pixels_equal(k, p)
+
+
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_visibility_kernel_matches_plain(geometry, wire_geometry, wireframe):
+    g, cfg = wire_geometry if wireframe else geometry
+    W, H = cfg.width, cfg.height
+    st = g.setup
+    before = rc.launch_counts["rasterize_visibility"]
+    k = rc.rasterize(st.setup, st.bbox, g.bins, W, H, wireframe)
+    assert rc.launch_counts["rasterize_visibility"] == before + 1
+    p = rc.rasterize_plain(st.setup, st.bbox, g.bins, W, H, wireframe)
+    torch.cuda.synchronize()
+    assert (k.tri >= 0).any()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(geometry):
     g, cfg = geometry
     st = g.shadow_setup
@@ -80,6 +126,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(geometry):
     with pytest.raises(ValueError):
         rc.rasterize_pixels(g.records[:, :16].contiguous(), g.setup.bbox,
                             g.bins, cfg.width, cfg.height)
+    with pytest.raises(ValueError):
+        rc.rasterize(g.records, g.setup.bbox, g.bins, cfg.width, cfg.height)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -112,8 +160,16 @@ def test_kernels_match_plain_on_random_triangles(geometry, seed):
     p = rc.rasterize_pixels_plain(records, st.bbox, bins, W, H)
     torch.cuda.synchronize()
     assert 0.2 < k.mask.float().mean().item() < 1.0
-    for f in ("tid", "mask", "z", "varyings", "mat_id", "blk_base"):
-        assert torch.equal(getattr(k, f), getattr(p, f)), f
+    _assert_pixels_equal(k, p)
+    for wire in (False, True):
+        _assert_pixels_equal(
+            rc.rasterize_pixels(records, st.bbox, bins, W, H, wire, 1.5),
+            rc.rasterize_pixels_plain(records, st.bbox, bins, W, H, wire,
+                                      1.5))
+        for a, b in zip(rc.rasterize(st.setup, st.bbox, bins, W, H, wire),
+                        rc.rasterize_plain(st.setup, st.bbox, bins, W, H,
+                                           wire)):
+            assert torch.equal(a, b)
     sq, _ = triangle_setup_corners(clip, valid, 128, 128, False)
     sbins = bin_tiles(sq.bbox, 128, 128, 16, 16, cap=640)
     assert torch.equal(rc.rasterize_depth(sq.setup, sq.bbox, sbins, 128),

@@ -1,4 +1,5 @@
-"""The plain PyTorch versions of K1 and K2 against the JAX package's rasters.
+"""The plain PyTorch versions of K1 and K2 against the JAX package's rasters
+(K2's wireframe variant and K3: tests/test_torch_visibility.py).
 
 The reference Pallas kernels run in interpret mode on the CPU, as the JAX
 package's own raster tests run them, with its loop-form subbatch sweep
@@ -26,8 +27,8 @@ from kanirenderer_tpu.ops.interpolate import interpolate as ref_interpolate
 from kanirenderer_tpu.ops.vertex import TriangleSetup as RefSetup
 
 from kanirenderer_tpu_torch.core.types import (CHUNK_SIZE, RenderConfig,
-                                               camera_state, default_lights,
-                                               frame_state)
+                                               RenderMode, camera_state,
+                                               default_lights, frame_state)
 from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
 from kanirenderer_tpu_torch.ops import raster_cuda as rc
 from kanirenderer_tpu_torch.ops import raster_xla as port_xla
@@ -39,15 +40,19 @@ from kanirenderer_tpu_torch.passes.frame import frame_geometry
 W, H, D = 256, 192, 256
 
 
+def _geometry(mode):
+    scene = sponza_standin_scene(target_tris=6000, num_materials=4,
+                                 tex_size=32, device="cpu")
+    state = frame_state(scene, camera_state([-900.0, 180.0, 0.0], 0.0,
+                                            np.deg2rad(-5.0), "cpu"),
+                        default_lights(device="cpu"))
+    return frame_geometry(scene, state, RenderConfig(
+        width=W, height=H, shadow_dim=D, mode=mode))
+
+
 @pytest.fixture(scope="module")
 def geometry():
-    scene = sponza_standin_scene(target_tris=6000, num_materials=4,
-                                 tex_size=32)
-    state = frame_state(scene, camera_state([-900.0, 180.0, 0.0], 0.0,
-                                            np.deg2rad(-5.0)),
-                        default_lights())
-    return frame_geometry(scene, state,
-                          RenderConfig(width=W, height=H, shadow_dim=D))
+    return _geometry(RenderMode.LIT_SHADOW)
 
 
 @pytest.fixture
@@ -260,3 +265,4 @@ def _within_ulps(z, want, setup, tid):
     y = torch.arange(h, dtype=torch.float32)[:, None] + 0.5
     scale = r[..., 9].abs() * x + r[..., 10].abs() * y + r[..., 11].abs()
     return (z - want).abs() <= 4 * 2.0 ** -24 * scale + 1e-7
+

@@ -38,7 +38,7 @@ def reference_scene(**kw):
                                             seed=5)])
 def test_scene_matches_reference(kw):
     ref = reference_scene(**kw)
-    ours = sponza_standin_scene(**kw)
+    ours = sponza_standin_scene(**kw, device="cpu")
     for name in port.Scene._fields:
         a = np.asarray(getattr(ref, name))
         b = getattr(ours, name).numpy()
@@ -52,7 +52,7 @@ def test_from_reference_carries_state():
     cam = kani.CameraState(position=np.array([1.0, 2.0, 3.0], np.float32),
                            yaw=np.float32(0.5), pitch=np.float32(-0.25))
     state = kani.frame_state(scene, cam, kani.default_lights(3))
-    ours = port.from_reference(state)
+    ours = port.from_reference(state, device="cpu")
     assert isinstance(ours, port.FrameState)
     assert isinstance(ours.lights.points, port.PointLights)
     assert ours.lights.points.position.shape == (3, 3)
@@ -66,13 +66,14 @@ def test_from_reference_carries_state():
 
 def test_defaults_match_reference():
     """Light rig and initial camera, value for value."""
-    ref = port.from_reference(kani.default_lights(2))
-    ours = port.default_lights(2)
+    ref = port.from_reference(kani.default_lights(2), device="cpu")
+    ours = port.default_lights(2, device="cpu")
     for a, b in zip(torch.utils._pytree.tree_leaves(ref),
                     torch.utils._pytree.tree_leaves(ours)):
         torch.testing.assert_close(a, b, rtol=2e-7, atol=0)
-    torch.testing.assert_close(port.from_reference(kani.default_camera()),
-                               port.default_camera(), rtol=2e-7, atol=0)
+    torch.testing.assert_close(
+        port.from_reference(kani.default_camera(), device="cpu"),
+        port.default_camera(device="cpu"), rtol=2e-7, atol=0)
 
 
 def test_port_imports_without_jax():
@@ -89,3 +90,27 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "0", out.stdout
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point that builds tensors puts them on the CUDA device
+    unless told otherwise: with a card the defaults land there; without
+    one each default call raises rather than building on the CPU."""
+    from kanirenderer_tpu_torch.io.scene_loader import SceneBuilder
+    small = dict(target_tris=300, num_materials=1, tex_size=8)
+    calls = {
+        "default_lights": port.default_lights,
+        "default_camera": port.default_camera,
+        "camera_state": lambda: port.camera_state([0.0, 1.0, 2.0], 0.0, 0.0),
+        "from_reference": lambda: port.from_reference(kani.default_lights()),
+        "SceneBuilder.build": lambda: SceneBuilder().build(),
+        "sponza_standin_scene": lambda: sponza_standin_scene(**small),
+    }
+    if torch.cuda.is_available():
+        for name, call in calls.items():
+            leaves = torch.utils._pytree.tree_leaves(call())
+            assert all(t.device.type == "cuda" for t in leaves), name
+    else:
+        for name, call in calls.items():
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()

@@ -39,7 +39,7 @@ def scenes():
         mp.setattr(ref_native, "morton_order", lambda *a: None)
         ref = ref_procedural.sponza_standin_scene(
             target_tris=6000, num_materials=4, tex_size=32)
-    return ref, port.from_reference(ref)
+    return ref, port.from_reference(ref, device="cpu")
 
 
 def ref_camera(pose):
@@ -66,7 +66,8 @@ def t(x):
 def test_uniform_matrices(pose):
     cam, lights = ref_camera(pose), kani.default_lights()
     vp, lvp = ref_matrices(cam, lights)
-    c, lt = port.from_reference(cam), port.from_reference(lights)
+    c = port.from_reference(cam, device="cpu")
+    lt = port.from_reference(lights, device="cpu")
     proj = math3d.perspective(torch.deg2rad(torch.tensor(45.0)), W / H,
                               0.1, 10000.0)
     ours = proj @ math3d.camera_view_matrix(c.position, c.yaw, c.pitch)
