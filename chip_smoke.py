@@ -3,21 +3,22 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (phase 10 one per configuration); any failure exits
-non-zero:
+Phases, one line each (phase 10 one per configuration, phase 12 one per
+case); any failure exits non-zero:
   1. device: needs CUDA; prints the nvidia-smi name/power-limit line;
   2. build: compiles the raster kernels from csrc/ with nvcc (sm_90a), one
      compiler process per source, all started together;
   3. K1 (shadow depth raster) against its plain PyTorch version on the
-     full-size sponza stand-in, 2048² map, bench pose;
+     full-size sponza stand-in, 2048² map, bench pose, bit-equal; also the
+     grid's chunks per tile and bbox hits per (tile, chunk) pair;
   4. K2 (fused raster + interpolation) against its plain version at
-     1920×1080, same pose;
+     1920×1080, same pose, bit-equal; the same counts of its grid;
   5. small frame: the whole LIT_SHADOW frame through the kernels against
      the plain path on the CPU (256×192, small stand-in), golden criterion;
   6. main path: 3 warm-up + 30 fly-through frames at 1920×1080 with a
      fresh 2048² shadow map, both kernels launched once per frame;
   7. K2w (K2's wireframe variant) against its plain version at 1920×1080,
-     bench pose, the camera setup without back-face culling;
+     bench pose, the camera setup without back-face culling, bit-equal;
   8. K3 (visibility raster) against its plain version at 1920×1080, with
      and without wireframe coverage;
   9. small frames: every other configuration of flythrough.MODE_CONFIGS
@@ -27,7 +28,11 @@ non-zero:
      1920×1080 per configuration, each launching exactly its kernels once
      per frame;
  11. the visibility entry (ops.raster_cuda.rasterize_config, which no
-     frame path calls) over the same 10 poses, with and without wireframe.
+     frame path calls) over the same 10 poses, with and without wireframe;
+ 12. K1, K2 and K2w against their plain versions on the adversarial cases
+     of ops/raster_cases.py (hit-list overflow, tiles at the 640-chunk cap
+     with counted overflow, empty tiles, depth ties across chunks, a
+     ragged raster, NaN planes), bit-equal.
 Then a JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -41,13 +46,13 @@ import time
 WARMUP, FRAMES = 3, 30
 MODE_FRAMES = 10
 # Kernel vs plain version, same inputs on the card.  Both evaluate every
-# plane in the same order with no fused multiply-add, so the kernels are
-# expected bit-equal; the K2 bounds are the parity bounds the reference's
-# own raster tests use (test_binning_pallas.py:79-84), K3's those of the
-# visibility buffer.
-K1_TOL = 0.0
-K2_TID_FRAC, K2_Z_TOL, K2_VARY_TOL = 0.002, 1e-6, 1e-4
+# plane in the same order with no fused multiply-add, so K1, K2 and K2w
+# must be bit-equal (tolerance 0: torch.equal on every output); K3 keeps
+# the parity bounds of the reference's visibility buffer tests.
+K1_TOL = K2_TOL = 0.0
 K3_TRI_FRAC, K3_Z_TOL, K3_BARY_TOL = 0.998, 1e-6, 1e-5
+PIXEL_FIELDS = ("tid", "mask", "z", "varyings", "mat_id", "tex_w", "tex_h",
+                "blk_base", "blk_w")
 # The golden criterion (tests/test_golden.py:65-68).
 GOLD_FRAC8, GOLD_MEAN = 0.01, 1.5
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and FP32
@@ -86,6 +91,31 @@ def cuda_ms(fn, reps: int) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pixels_differ(k, p) -> list:
+    """Names of the PixelBuffer outputs on which kernel and plain version
+    are not bit-equal."""
+    import torch
+    return [f for f in PIXEL_FIELDS
+            if not torch.equal(getattr(k, f), getattr(p, f))]
+
+
+def pixels_err(k, p) -> float:
+    """max |kernel − plain| over depth and varyings."""
+    return max((k.z - p.z).abs().max().item(),
+               (k.varyings - p.varyings).abs().max().item())
+
+
+def grid_stats(bins, hit_evals: int) -> str:
+    """Chunks per tile and bbox hits per (tile, chunk) pair of a grid."""
+    count = bins.count.float()
+    pairs = int(bins.count.sum())
+    hits = hit_evals // (bins.tile_w * bins.tile_h)
+    return (f"chunks per tile max {int(count.max())} mean "
+            f"{count.mean().item():.2f} ({int((count == 0).sum())} of "
+            f"{count.numel()} tiles empty), bin pairs {pairs}, bbox hits "
+            f"per pair {hits / max(pairs, 1):.2f} of 128")
 
 
 def raster_work(rows, bbox, bins, width, height, wire):
@@ -194,54 +224,47 @@ def main() -> int:
                                              g.shadow_bins, D), 20)
     pms1 = cuda_ms(lambda: rc.rasterize_depth_plain(sh.setup, sh.bbox,
                                                     g.shadow_bins, D), 2)
-    print(f"phase 3 K1 {D}x{D}: max|kernel-plain| {err1:.3g} "
-          f"(tol {K1_TOL}), covered {covered1:.3f}, "
-          f"bin pairs {int(g.shadow_bins.count.sum())}, "
-          f"{ms1:.3f} ms vs plain {pms1:.1f} ms", flush=True)
-    if not err1 <= K1_TOL or covered1 <= 0.0:
-        fail("K1 disagrees with its plain version")
     hits1, _ = raster_work(sh.setup, sh.bbox, g.shadow_bins, D, D, False)
     b = g.shadow_bins
+    print(f"phase 3 K1 {D}x{D}: max|kernel-plain| {err1:.3g} "
+          f"(tol {K1_TOL}), bit-equal {torch.equal(k1, p1)}, covered "
+          f"{covered1:.3f}, {grid_stats(b, hits1)}, "
+          f"{ms1:.3f} ms vs plain {pms1:.1f} ms", flush=True)
+    if not torch.equal(k1, p1) or covered1 <= 0.0:
+        fail("K1 disagrees with its plain version")
     kernels["rasterize_depth"] = dict(
         source="kanirenderer_tpu_torch/csrc/raster_depth.cu",
         replaces="kanirenderer_tpu/ops/raster_pallas.py:410",
         max_abs_err=err1, ms=ms1, plain_ms=pms1,
-        bytes=nbytes(sh.setup, sh.bbox, b.start, b.count, b.chunk, k1),
+        bytes=nbytes(sh.setup, sh.bbox, b.pair_tile, b.chunk, k1),
         ops=hits1 * OPS_COVER)
 
     # ---- phase 4: K2 against its plain version ----
-    k2 = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
-    p2 = rc.rasterize_pixels_plain(g.records, g.setup.bbox, g.bins, W, H)
+    cs = g.setup
+    k2 = rc.rasterize_pixels(g.records, cs.setup, cs.bbox, g.bins, W, H)
+    p2 = rc.rasterize_pixels_plain(g.records, cs.setup, cs.bbox, g.bins, W,
+                                   H)
     torch.cuda.synchronize()
-    if not torch.equal(k2.mask, p2.mask):
-        fail("K2 coverage mask differs from its plain version")
-    same = k2.tid == p2.tid
-    tid_frac = 1.0 - same.float().mean().item()
-    z_err = (k2.z - p2.z)[same].abs().max().item()
-    v_err = (k2.varyings - p2.varyings)[:, same].abs().max().item()
-    ints_ok = all(torch.equal(getattr(k2, f)[same], getattr(p2, f)[same])
-                  for f in ("mat_id", "tex_w", "tex_h", "blk_base", "blk_w"))
-    ms2 = cuda_ms(lambda: rc.rasterize_pixels(g.records, g.setup.bbox,
+    differ = pixels_differ(k2, p2)
+    err2 = pixels_err(k2, p2)
+    ms2 = cuda_ms(lambda: rc.rasterize_pixels(g.records, cs.setup, cs.bbox,
                                               g.bins, W, H), 20)
     pms2 = cuda_ms(lambda: rc.rasterize_pixels_plain(
-        g.records, g.setup.bbox, g.bins, W, H), 2)
-    print(f"phase 4 K2 {W}x{H}: tid differs {tid_frac:.5f} "
-          f"(tol {K2_TID_FRAC}), z {z_err:.3g} (tol {K2_Z_TOL}), "
-          f"varyings {v_err:.3g} (tol {K2_VARY_TOL}), ints equal {ints_ok}, "
-          f"covered {k2.mask.float().mean().item():.3f}, "
-          f"bin pairs {int(g.bins.count.sum())}, "
-          f"{ms2:.3f} ms vs plain {pms2:.1f} ms", flush=True)
-    if not (tid_frac <= K2_TID_FRAC and z_err <= K2_Z_TOL
-            and v_err <= K2_VARY_TOL and ints_ok):
-        fail("K2 disagrees with its plain version")
-    hits2, _ = raster_work(g.records, g.setup.bbox, g.bins, W, H, False)
+        g.records, cs.setup, cs.bbox, g.bins, W, H), 2)
+    hits2, _ = raster_work(cs.setup, cs.bbox, g.bins, W, H, False)
     b = g.bins
+    print(f"phase 4 K2 {W}x{H}: outputs not bit-equal {differ} (tol "
+          f"{K2_TOL}), max|kernel-plain| {err2:.3g}, covered "
+          f"{k2.mask.float().mean().item():.3f}, {grid_stats(b, hits2)}, "
+          f"{ms2:.3f} ms vs plain {pms2:.1f} ms", flush=True)
+    if differ or not k2.mask.any():
+        fail("K2 disagrees with its plain version")
     px_out = nbytes(k2.z, k2.varyings, k2.mat_id) + 5 * nbytes(k2.mat_id)
     kernels["rasterize_pixels"] = dict(
         source="kanirenderer_tpu_torch/csrc/raster_pixels.cu",
         replaces="kanirenderer_tpu/ops/raster_pallas.py:759",
-        max_abs_err=max(z_err, v_err), ms=ms2, plain_ms=pms2,
-        bytes=nbytes(g.records, g.setup.bbox, b.start, b.count, b.chunk)
+        max_abs_err=err2, ms=ms2, plain_ms=pms2,
+        bytes=nbytes(g.records, cs.setup, cs.bbox, b.start, b.count, b.chunk)
         + px_out,
         ops=hits2 * OPS_COVER + int(k2.mask.sum()) * OPS_K2_PIXEL)
     del k1, p1, k2, p2
@@ -306,44 +329,36 @@ def main() -> int:
     gw = frame_geometry(scene, state, wcfg)
     thresh = wcfg.wire_thresh_px
     max_chunks = int(gw.bins.count.max())
-    k2w = rc.rasterize_pixels(gw.records, gw.setup.bbox, gw.bins, W, H, True,
-                              thresh)
-    p2w = rc.rasterize_pixels_plain(gw.records, gw.setup.bbox, gw.bins, W,
-                                    H, True, thresh)
+    ws = gw.setup
+    k2w = rc.rasterize_pixels(gw.records, ws.setup, ws.bbox, gw.bins, W, H,
+                              True, thresh)
+    p2w = rc.rasterize_pixels_plain(gw.records, ws.setup, ws.bbox, gw.bins,
+                                    W, H, True, thresh)
     torch.cuda.synchronize()
-    mask_ok = torch.equal(k2w.mask, p2w.mask)
-    same = k2w.tid == p2w.tid
-    tid_frac = 1.0 - same.float().mean().item()
-    z_err = (k2w.z - p2w.z)[same].abs().max().item()
-    v_err = (k2w.varyings - p2w.varyings)[:, same].abs().max().item()
-    ints_ok = all(torch.equal(getattr(k2w, f)[same], getattr(p2w, f)[same])
-                  for f in ("mat_id", "tex_w", "tex_h", "blk_base", "blk_w"))
+    differ = pixels_differ(k2w, p2w)
+    err2w = pixels_err(k2w, p2w)
     ms2w = cuda_ms(lambda: rc.rasterize_pixels(
-        gw.records, gw.setup.bbox, gw.bins, W, H, True, thresh), 20)
+        gw.records, ws.setup, ws.bbox, gw.bins, W, H, True, thresh), 20)
     pms2w = cuda_ms(lambda: rc.rasterize_pixels_plain(
-        gw.records, gw.setup.bbox, gw.bins, W, H, True, thresh), 2)
-    print(f"phase 7 K2w {W}x{H}: mask equal {mask_ok}, tid differs "
-          f"{tid_frac:.5f} (tol {K2_TID_FRAC}), z {z_err:.3g} "
-          f"(tol {K2_Z_TOL}), varyings {v_err:.3g} (tol {K2_VARY_TOL}), "
-          f"ints equal {ints_ok}, covered {k2w.mask.float().mean().item():.3f}"
-          f", bin pairs {int(gw.bins.count.sum())}, largest tile "
-          f"{max_chunks} chunks (cap {wcfg.max_chunks_per_tile}), overflow "
-          f"{int(gw.bins.overflow)}, {ms2w:.3f} ms vs plain {pms2w:.1f} ms",
-          flush=True)
-    if not (mask_ok and tid_frac <= K2_TID_FRAC and z_err <= K2_Z_TOL
-            and v_err <= K2_VARY_TOL and ints_ok):
-        fail("K2w disagrees with its plain version")
-    if int(gw.bins.overflow):
-        fail("wireframe binning dropped chunks")
-    hits2w, cov2w = raster_work(gw.records, gw.setup.bbox, gw.bins, W, H,
-                                True)
+        gw.records, ws.setup, ws.bbox, gw.bins, W, H, True, thresh), 2)
+    hits2w, cov2w = raster_work(ws.setup, ws.bbox, gw.bins, W, H, True)
     b = gw.bins
+    print(f"phase 7 K2w {W}x{H}: outputs not bit-equal {differ} (tol "
+          f"{K2_TOL}), max|kernel-plain| {err2w:.3g}, covered "
+          f"{k2w.mask.float().mean().item():.3f}, {grid_stats(b, hits2w)}, "
+          f"largest tile {max_chunks} chunks (cap "
+          f"{wcfg.max_chunks_per_tile}), overflow {int(b.overflow)}, "
+          f"{ms2w:.3f} ms vs plain {pms2w:.1f} ms", flush=True)
+    if differ or not k2w.mask.any():
+        fail("K2w disagrees with its plain version")
+    if int(b.overflow):
+        fail("wireframe binning dropped chunks")
     kernels["rasterize_pixels_wireframe"] = dict(
         source="kanirenderer_tpu_torch/csrc/raster_pixels.cu",
         replaces="kanirenderer_tpu/ops/raster_pallas.py:831",
-        max_abs_err=max(z_err, v_err), ms=ms2w, plain_ms=pms2w,
-        bytes=nbytes(gw.records, gw.setup.bbox, b.start, b.count, b.chunk)
-        + px_out,
+        max_abs_err=err2w, ms=ms2w, plain_ms=pms2w,
+        bytes=nbytes(gw.records, ws.setup, ws.bbox, b.start, b.count,
+                     b.chunk) + px_out,
         ops=hits2w * OPS_COVER + cov2w * OPS_WIRE
         + int(k2w.mask.sum()) * OPS_K2_PIXEL)
     del k2w, p2w
@@ -458,6 +473,39 @@ def main() -> int:
         fail("the visibility entry did not rasterize through K3")
     kernels["rasterize_visibility"]["launches"] = \
         counts["rasterize_visibility"]
+
+    # ---- phase 12: adversarial cases, kernels against plain versions ----
+    from kanirenderer_tpu_torch.ops import raster_cases
+    for case, sq in zip(raster_cases.adversarial_cases(dev),
+                        raster_cases.adversarial_cases(dev, square=True)):
+        differ = []
+        for wire in (False, True):
+            args = (case.records, case.setup, case.bbox, case.bins,
+                    case.width, case.height, wire, thresh)
+            k, p = rc.rasterize_pixels(*args), rc.rasterize_pixels_plain(*args)
+            torch.cuda.synchronize()
+            differ += [f"{'K2w' if wire else 'K2'}.{f}"
+                       for f in pixels_differ(k, p)]
+            won = k.tid[k.mask].to(torch.int64)
+            if not k.mask.any() or not case.kept[won].all():
+                fail(f"phase 12 {case.name}: implausible winners")
+        k1 = rc.rasterize_depth(sq.setup, sq.bbox, sq.bins, sq.width)
+        p1 = rc.rasterize_depth_plain(sq.setup, sq.bbox, sq.bins, sq.width)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, p1):
+            differ.append("K1")
+        b = case.bins
+        print(f"phase 12 {case.name}: {case.width}x{case.height} (K1 "
+              f"{sq.width}²), {case.setup.shape[0]} triangles, chunks per "
+              f"tile max {int(b.count.max())}, "
+              f"{int((b.count == 0).sum())} of {b.count.numel()} tiles "
+              f"empty, overflow {int(b.overflow)}, NaN rows "
+              f"{int(case.setup.isnan().any(1).sum())}, covered "
+              f"{k.mask.float().mean().item():.3f}, outputs not bit-equal "
+              f"{differ}", flush=True)
+        if differ:
+            fail(f"phase 12 {case.name}: kernels disagree with their plain "
+                 "versions")
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

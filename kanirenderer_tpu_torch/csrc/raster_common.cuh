@@ -1,18 +1,34 @@
 // Shared pieces of the tile raster kernels (raster_depth.cu,
 // raster_pixels.cu, raster_visibility.cu).
 //
-// One CUDA block rasterizes one screen tile of tile_w x tile_h pixels with
-// one thread per pixel.  The block walks the tile's chunk list (ascending
-// chunk id, from ops/binning.bin_tiles); for each chunk it stages the 128
-// triangles' edge and depth planes in shared memory and builds a 128-bit
-// mask of the triangles whose pixel bbox overlaps the tile, so every thread
-// of the block visits exactly the same triangles (no divergence).
+// A CUDA block rasterizes a screen tile of tile_w x tile_h pixels with one
+// thread per pixel, against chunks of 128 triangles from the tile's list
+// (ascending chunk id, from ops/binning.bin_tiles; K1 gives a block a
+// slice of a tile's list and merges the blocks).  Only the triangles
+// whose pixel bbox overlaps the tile are evaluated, and every thread of a
+// warp visits exactly the same triangles (no divergence).
+//
+// Two ways to get there:
+//  * K1 and K2 (HitStage, cull_chunks, visit_hits): bbox first.  The warps
+//    test the chunks' bboxes (2 KB per chunk) and append the global row ids
+//    of the hits to a list in shared memory; only the hits' planes (48 bytes
+//    each) are then fetched, with cp.async into a three-stage ring, so the
+//    next batches load while this one is evaluated.  Before a warp
+//    evaluates a batch, each lane takes one hit and asks whether any of its
+//    edge planes is negative over the whole rectangle of the warp's pixels
+//    (may_cover); the warp then visits only the hits that survive.  The
+//    test is exact, not approximate: see edge_max.
+//  * K3 (ChunkStage, stage_chunk): stages all 128 triangles' planes of a
+//    chunk and a 128-bit mask of the bbox hits.
 //
 // Floating-point order: a plane is evaluated as (a*X + c) + b*Y in round-to-
 // nearest with no fused multiply-add, the order of the reference Pallas
 // kernel (raster_pallas.py:488-506) and of the plain PyTorch versions in
 // ops/raster_cuda.py, so kernel and plain version agree bit for bit.  The
-// library is also built with -fmad=false.
+// library is also built with -fmad=false.  The same bits are why the tensor
+// cores are not used: a TF32 or bf16 product rounds the plane terms
+// differently, and the winner of near-coplanar surfaces turns on the last
+// bit.
 
 #pragma once
 
@@ -112,6 +128,178 @@ __device__ __forceinline__ void stage_chunk(ChunkStage* s, const float* rows,
     const bool hit = b.x < tx1 && b.z > tx0 && b.y < ty1 && b.w > ty0;
     const uint32_t m = __ballot_sync(0xffffffffu, hit);
     if ((threadIdx.x & 31) == 0) s->mask[threadIdx.x >> 5] = m;
+  }
+}
+
+
+// ---- bbox-first hit compaction and asynchronous plane staging (K1, K2) ----
+
+constexpr int kBatch = 32;   // hits staged per ring slot: one per lane
+constexpr int kStages = 3;   // ring slots: two batches in flight, one in use
+
+// Shared-memory state of one block: the hit list of up to kCap global
+// triangle row ids (unordered), its length, and the ring of staged planes.
+template <int kCap>
+struct HitStage {
+  int list[kCap];
+  Planes ring[kStages][kBatch];
+  int count;
+};
+
+// Pixel (lx, ly) of this thread within its tile.  A warp takes an 8 x 4
+// patch where the tile divides into such patches, else 32 pixels in raster
+// order: the squarer the warp's rectangle, the more hits may_cover drops.
+__device__ __forceinline__ void tile_pixel(int tile_w, int tile_h, int* lx,
+                                           int* ly) {
+  const int t = threadIdx.x;
+  if ((tile_w & 7) == 0 && (tile_h & 3) == 0) {
+    const int patch = t >> 5, lane = t & 31, across = tile_w >> 3;
+    *lx = (patch % across) * 8 + (lane & 7);
+    *ly = (patch / across) * 4 + (lane >> 3);
+  } else {
+    *lx = t % tile_w;
+    *ly = t / tile_w;
+  }
+}
+
+// The rectangle of pixel centres a warp covers: the least and greatest X
+// and Y over its lanes (a superset of its pixels where they do not form a
+// rectangle).
+struct Rect {
+  float x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ Rect warp_rect(int px, int py) {
+  Rect r;
+  r.x0 = (float)__reduce_min_sync(0xffffffffu, px) + 0.5f;
+  r.x1 = (float)__reduce_max_sync(0xffffffffu, px) + 0.5f;
+  r.y0 = (float)__reduce_min_sync(0xffffffffu, py) + 0.5f;
+  r.y1 = (float)__reduce_max_sync(0xffffffffu, py) + 0.5f;
+  return r;
+}
+
+// The greatest value plane (a, b, c) takes at a pixel centre of r, or NaN.
+// Each step of (a*X + c) + b*Y is a monotone function followed by a
+// monotone rounding, so the computed plane is monotone in X for fixed Y and
+// in Y for fixed X, and its maximum over the rectangle lies at the corner
+// the signs of a and b point to.  Hence a negative value here means the
+// plane is negative (or NaN) at every pixel of r, bit for bit as `covers`
+// will compute it; a NaN here decides nothing.
+__device__ __forceinline__ float edge_max(float a, float b, float c,
+                                          const Rect& r) {
+  return plane(a, b, c, a >= 0.f ? r.x1 : r.x0, b >= 0.f ? r.y1 : r.y0);
+}
+
+// False only if triangle t covers no pixel centre of r.
+__device__ __forceinline__ bool may_cover(const Planes& t, const Rect& r) {
+  return !(edge_max(t.p0.x, t.p0.y, t.p0.z, r) < 0.f) &&
+         !(edge_max(t.p0.w, t.p1.x, t.p1.y, r) < 0.f) &&
+         !(edge_max(t.p1.z, t.p1.w, t.p2.x, r) < 0.f);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Cull: append to s->list the global row ids of the triangles of chunks
+// ids[0..n) whose bbox meets the tile [tx0, tx1) x [ty0, ty1).  One warp
+// takes a chunk: four bboxes per lane, one shared atomicAdd per chunk.  The
+// list must have room for n * kChunk more ids; the order of the list is
+// arbitrary.  The caller zeroes s->count before and brackets the call with
+// __syncthreads().  `ids` may point to global or shared memory.
+template <int kCap>
+__device__ __forceinline__ void cull_chunks(HitStage<kCap>* s,
+                                            const float4* __restrict__ bbox,
+                                            const int* ids, int n, float tx0,
+                                            float tx1, float ty0, float ty1) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t below = (1u << lane) - 1u;
+  for (int i = threadIdx.x >> 5; i < n; i += blockDim.x >> 5) {
+    const int row0 = ids[i] * kChunk;
+    bool hit[4];
+    uint32_t m[4];
+    int total = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 b = bbox[row0 + q * 32 + lane];
+      hit[q] = b.x < tx1 && b.z > tx0 && b.y < ty1 && b.w > ty0;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      m[q] = __ballot_sync(0xffffffffu, hit[q]);
+      total += __popc(m[q]);
+    }
+    if (total == 0) continue;  // uniform over the warp
+    int base = 0;
+    if (lane == 0) base = atomicAdd(&s->count, total);
+    base = __shfl_sync(0xffffffffu, base, 0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (hit[q]) s->list[base + __popc(m[q] & below)] = row0 + q * 32 + lane;
+      base += __popc(m[q]);
+    }
+  }
+}
+
+// Evaluate: call visit(planes, row id) for those of the first `hits`
+// entries of s->list that may cover a pixel of the warp's rectangle
+// `rect`, the same sequence in every thread of a warp.  The planes (lanes
+// 0:12 of the (T, 16) setup rows) are fetched in batches of kBatch with
+// cp.async into the ring; batch b + 2 is requested before batch b is
+// evaluated, with one barrier per batch.  `hits` must be uniform over the
+// block; the caller puts a __syncthreads() between the cull and this call,
+// and another before the list or the ring is written again.
+template <int kCap, typename Visit>
+__device__ __forceinline__ void visit_hits(HitStage<kCap>* s,
+                                           const float* __restrict__ setup,
+                                           int hits, const Rect& rect,
+                                           Visit&& visit) {
+  static_assert(kStages == 3, "the waits below assume a three-slot ring");
+  static_assert(kBatch == 32, "one hit per lane in the rectangle test");
+  const int lane = threadIdx.x & 31;
+  const int batches = (hits + kBatch - 1) / kBatch;
+  auto fetch = [&](int b) {
+    if (b < batches) {
+      const int h0 = b * kBatch;
+      const int items = 3 * min(kBatch, hits - h0);
+      float4* dst = reinterpret_cast<float4*>(s->ring[b % kStages]);
+      for (int j = threadIdx.x; j < items; j += blockDim.x) {
+        const int r = j / 3;
+        const float4* row = reinterpret_cast<const float4*>(
+            setup + (size_t)s->list[h0 + r] * 16);
+        cp_async16(dst + j, row + (j - 3 * r));
+      }
+    }
+    cp_async_commit();  // one group per call, empty or not
+  };
+  fetch(0);
+  fetch(1);
+  for (int b = 0; b < batches; ++b) {
+    cp_async_wait<1>();  // this thread's copies of batch b have landed
+    __syncthreads();     // everyone's have, and batch b - 1 is evaluated
+    fetch(b + 2);        // into the slot batch b - 1 has just left
+    const Planes* tri = s->ring[b % kStages];
+    const int* id = s->list + b * kBatch;
+    const int n = min(kBatch, hits - b * kBatch);
+    uint32_t m =
+        __ballot_sync(0xffffffffu, lane < n && may_cover(tri[lane], rect));
+    while (m) {
+      const int j = __ffs(m) - 1;
+      m &= m - 1;
+      visit(tri[j], id[j]);
+    }
   }
 }
 

@@ -2,81 +2,110 @@
 //
 // Replaces kanirenderer_tpu/ops/raster_pallas.py:410-587 (`_raster_kernel`
 // with depth_only=True, launched by `_run`, :603-699, from
-// `rasterize_depth`, :1305-1344).  For every map texel it writes the minimum,
-// over the binned triangles that cover the texel centre, of the
-// screen-affine depth; the map is cleared to 1.0.
+// `rasterize_depth`, :1305-1344).  For every map texel it computes the
+// minimum, over the binned triangles that cover the texel centre, of the
+// screen-affine depth; the caller clears the map to 1.0 first.
 //
-// What bounds it on this card: per (tile, chunk) pair the block stages
-// 128 x 48 bytes of planes plus 2 KB of bboxes from device memory, then
-// evaluates only the triangles whose bbox meets the tile (4 planes, ~16
-// FP32 instructions per texel and triangle).  On the shadow grid most
-// pairs hold few overlapping triangles, so the staging latency of each
-// chunk, not arithmetic, is expected to dominate.
+// What bounds it on this card: FP32 plane evaluation, badly balanced.  At
+// the bench pose nine tenths of the 16,384 shadow tiles are empty and the
+// rest hold 21 chunks on average and up to 117, with up to 2,400 bbox hits
+// in one tile, so with one block per tile the launch ends on the serial
+// walk of a few heavy tiles while most SMs idle.  Staging every chunk's 128
+// planes (8 KB per (tile, chunk) pair, of which 9% are hit) comes second.
 //
-// Design: one block per tile, one thread per texel, a running minimum in a
-// register; each block owns its output tile, so there are no atomics.
-// Latency is hidden by occupancy (small blocks, 6 KB of shared memory),
-// not yet by asynchronous copies: cp.async or TMA double-buffering and the
-// reference's occlusion skip are later work.  Padding rows never reach the
-// kernel as live triangles: invalid rows carry an empty bbox (masked out)
-// and e0.c = -1 (never covered).
+// Design: the work is cut by bin entries, not by tiles.  Block k takes
+// entries [k*kSlice, (k+1)*kSlice) of the flat (tile, chunk) list that
+// binning sorted by tile, so no block holds more than kSlice chunks and the
+// heaviest tile is spread over a dozen blocks.  Consecutive entries of one
+// tile form a run; for each run the block culls by bbox first (one warp per
+// chunk, hit ids compacted into shared memory), fetches only the hits'
+// planes with cp.async into a three-slot ring (raster_common.cuh), lets each
+// warp drop the hits whose edges exclude its 8 x 4 patch of the tile (an exact
+// test, raster_common.cuh edge_max), keeps a running minimum in a register
+// and merges it into the map with atomicMin.
+// Depths are in [-0.0, 1.0], where the order of the floats is the order of
+// their bits as signed integers, so the merged minimum is exact and does
+// not depend on the order of the blocks.  Entries dropped by the per-tile
+// cap and the padding of the list carry tile -1 and are skipped.  Invalid
+// triangles carry an empty bbox (never hit) and e0.c = -1 (never covered).
+// The planes keep their (a*X + c) + b*Y order without FMA, which rules out
+// the tensor cores (see raster_common.cuh).
 
 #include "raster_common.cuh"
 
 namespace {
 
-__global__ void raster_depth_kernel(const float* __restrict__ setup,
-                                    const float4* __restrict__ bbox,
-                                    const int* __restrict__ tile_start,
-                                    const int* __restrict__ tile_count,
-                                    const int* __restrict__ chunk,
-                                    float* __restrict__ out, int width,
-                                    int height, int tiles_x, int tile_w,
-                                    int tile_h) {
-  __shared__ kani::ChunkStage s;
-  const int tile = blockIdx.x;
-  const int tx0 = (tile % tiles_x) * tile_w;
-  const int ty0 = (tile / tiles_x) * tile_h;
-  const int px = tx0 + threadIdx.x % tile_w;
-  const int py = ty0 + threadIdx.x / tile_w;
-  const float X = (float)px + 0.5f;
-  const float Y = (float)py + 0.5f;
+constexpr int kSlice = 8;  // bin entries per block: a chunk per warp
+using Stage = kani::HitStage<kSlice * kani::kChunk>;
 
-  const int first = tile_start[tile];
-  const int n = tile_count[tile];
-  float acc = 1.0f;
-  for (int i = 0; i < n; ++i) {
-    __syncthreads();
-    kani::stage_chunk(&s, setup, 16, bbox, chunk[first + i], (float)tx0,
-                      (float)(tx0 + tile_w), (float)ty0,
-                      (float)(ty0 + tile_h));
-    __syncthreads();
-    for (int w = 0; w < kani::kMaskWords; ++w) {
-      uint32_t m = s.mask[w];
-      while (m) {
-        const int r = w * 32 + __ffs(m) - 1;
-        m &= m - 1;
-        float z;
-        if (kani::covers(s.tri[r], X, Y, &z)) acc = fminf(acc, z);
+// Blocks of up to 1024 threads; no register limit below 64 pays here.
+__global__ void __launch_bounds__(1024, 1)
+    raster_depth_kernel(const float* __restrict__ setup,
+                        const float4* __restrict__ bbox,
+                        const int* __restrict__ pair_tile,
+                        const int* __restrict__ chunk, int entries,
+                        float* __restrict__ out, int width, int height,
+                        int tiles_x, int tile_w, int tile_h) {
+  __shared__ Stage s;
+  __shared__ int s_tile[kSlice], s_chunk[kSlice];
+  const int i0 = blockIdx.x * kSlice;
+  if (threadIdx.x < kSlice) {
+    const bool live = i0 + threadIdx.x < entries;
+    s_tile[threadIdx.x] = live ? pair_tile[i0 + threadIdx.x] : -1;
+    s_chunk[threadIdx.x] = live ? chunk[i0 + threadIdx.x] : 0;
+  }
+  __syncthreads();
+  int lx, ly;
+  kani::tile_pixel(tile_w, tile_h, &lx, &ly);
+
+  for (int j0 = 0; j0 < kSlice;) {
+    const int tile = s_tile[j0];
+    int j1 = j0 + 1;
+    while (j1 < kSlice && s_tile[j1] == tile) ++j1;
+    if (tile >= 0) {
+      const int tx0 = (tile % tiles_x) * tile_w;
+      const int ty0 = (tile / tiles_x) * tile_h;
+      const int px = tx0 + lx;
+      const int py = ty0 + ly;
+      const float X = (float)px + 0.5f;
+      const float Y = (float)py + 0.5f;
+      const kani::Rect rect = kani::warp_rect(px, py);
+      __syncthreads();  // the previous run has left the list and the ring
+      if (threadIdx.x == 0) s.count = 0;
+      __syncthreads();
+      kani::cull_chunks(&s, bbox, s_chunk + j0, j1 - j0, (float)tx0,
+                        (float)(tx0 + tile_w), (float)ty0,
+                        (float)(ty0 + tile_h));
+      __syncthreads();
+      float acc = 1.0f;
+      kani::visit_hits(&s, setup, s.count, rect,
+                       [&](const kani::Planes& t, int) {
+                         float z;
+                         if (kani::covers(t, X, Y, &z)) acc = fminf(acc, z);
+                       });
+      if (px < width && py < height && acc < 1.0f) {
+        atomicMin(reinterpret_cast<int*>(out + (size_t)py * width + px),
+                  __float_as_int(acc));
       }
     }
+    j0 = j1;
   }
-  if (px < width && py < height) out[(size_t)py * width + px] = acc;
 }
 
 }  // namespace
 
+// `out` must hold 1.0 everywhere; `entries` is the length of pair_tile and
+// chunk.
 extern "C" int kani_rasterize_depth(const float* setup, const float* bbox,
-                                    const int* tile_start,
-                                    const int* tile_count, const int* chunk,
-                                    float* out, int width, int height,
-                                    int tiles_x, int num_tiles, int tile_w,
+                                    const int* pair_tile, const int* chunk,
+                                    int entries, float* out, int width,
+                                    int height, int tiles_x, int tile_w,
                                     int tile_h, void* stream) {
-  if (num_tiles > 0) {
-    raster_depth_kernel<<<num_tiles, tile_w * tile_h, 0,
+  if (entries > 0) {
+    raster_depth_kernel<<<(entries + kSlice - 1) / kSlice, tile_w * tile_h, 0,
                           (cudaStream_t)stream>>>(
-        setup, reinterpret_cast<const float4*>(bbox), tile_start, tile_count,
-        chunk, out, width, height, tiles_x, tile_w, tile_h);
+        setup, reinterpret_cast<const float4*>(bbox), pair_tile, chunk,
+        entries, out, width, height, tiles_x, tile_w, tile_h);
   }
   return (int)cudaGetLastError();
 }

@@ -16,20 +16,36 @@
 // v0 + d1*w1 + d2*w2 and the material lanes (blk_base = hi*65536 + lo).
 // Uncovered pixels take the reference's defaults (:922-929).
 //
-// What bounds it on this card: phase 1 as in raster_depth.cu (chunk
-// staging latency on sparse tiles, FP32 edge evaluation on dense ones);
-// phase 2 reads 304 bytes per covered pixel, mostly from L2 since
-// neighbouring pixels share winners, and writes 96 bytes per pixel
-// (~200 MB per 1920x1080 frame).  K2w evaluates three more planes and
-// three correctly rounded 1/sqrt per triangle and pixel, and runs without
-// back-face culling upstream, so about twice the triangles reach it.
+// What bounds it on this card: bytes.  The 23 planar outputs are 96 bytes
+// per pixel (199 MB of the 281 MB a 1920x1080 frame has to move) and
+// phase 2 reads 304 bytes of record per covered pixel, mostly from L2 since
+// neighbouring pixels share winners.  Phase 1 is FP32 plane evaluation over
+// the bbox hits (6 of a chunk's 128 triangles on average) behind a chain of
+// dependent loads (tile -> chunk ids -> bboxes -> planes); it hides behind
+// other blocks' phase 2 only if enough blocks are resident.  K2w evaluates
+// three more planes and three correctly rounded 1/sqrt per covered
+// evaluation, and runs without back-face culling upstream, so about twice
+// the triangles reach it.
 //
-// Design: one block per tile, one thread per pixel, the tournament state
-// in two registers.  The TPU kernel's winner-run compaction and lane-LUT
-// record resolve (:938-1121) exist because a TPU core cannot gather per
-// pixel from HBM; here phase 2 is a plain global load.  Evaluation order
-// as in raster_common.cuh for phase 1 and ((a*X) + (b*Y)) + c for the
-// phase-2 planes, as the reference's phase 2 and the plain version.
+// Design: one block per tile, one thread per pixel, the tournament state in
+// two registers.  Phase 1 culls by bbox first: the warps test the bboxes of
+// up to kRound chunks at a time and compact the hit ids into shared memory,
+// then only the hits' planes are fetched, from the contiguous (T, 16) setup
+// rows (not from the 304-byte records, where a 48-byte piece straddles
+// sectors), with cp.async into a three-slot ring (raster_common.cuh), and
+// each warp drops the hits whose edges exclude its 8 x 4 patch of the tile
+// (an exact test, raster_common.cuh edge_max).  The
+// hit list is unordered, so the tournament compares (z, id)
+// lexicographically, which is what a strict `<` over ascending ids gives.
+// Phase 2 consumes the record piecewise (edge rows, then four varyings at a
+// time) under a register limit that keeps six blocks of 256 threads on an
+// SM; held whole, the record's 76 lanes cost 80 registers and leave three.
+// The TPU kernel's winner-run compaction and lane-LUT record resolve
+// (:938-1121) exist because a TPU core cannot gather per pixel
+// from HBM; here phase 2 is a plain global load.  Evaluation order as in
+// raster_common.cuh for phase 1 and ((a*X) + (b*Y)) + c for the phase-2
+// planes, as the reference's phase 2 and the plain version; no FMA, hence
+// no tensor cores (see raster_common.cuh).
 
 #include "raster_common.cuh"
 
@@ -44,47 +60,55 @@ __device__ __forceinline__ float plane_abc(float a, float b, float c,
   return __fadd_rn(__fadd_rn(__fmul_rn(a, X), __fmul_rn(b, Y)), c);
 }
 
-template <bool kWire>
-__global__ void raster_pixels_kernel(
-    const float* __restrict__ records, const float4* __restrict__ bbox,
-    const int* __restrict__ tile_start, const int* __restrict__ tile_count,
-    const int* __restrict__ chunk, float* __restrict__ z_out,
-    float* __restrict__ vary_out, int* __restrict__ int_out, int width,
-    int height, int tiles_x, int tile_w, int tile_h, float wire_thresh) {
-  __shared__ kani::ChunkStage s;
+constexpr int kRound = 16;  // chunks culled per round of phase 1
+using Stage = kani::HitStage<kRound * kani::kChunk>;
+
+// kMaxThreads and kMinBlocks set the register limit: blocks of up to 256
+// threads run six to an SM (40 registers; four for K2w, whose edge
+// distances spill below 64), larger blocks take what they need.
+template <bool kWire, int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+    raster_pixels_kernel(
+    const float* __restrict__ records, const float* __restrict__ setup,
+    const float4* __restrict__ bbox, const int* __restrict__ tile_start,
+    const int* __restrict__ tile_count, const int* __restrict__ chunk,
+    float* __restrict__ z_out, float* __restrict__ vary_out,
+    int* __restrict__ int_out, int width, int height, int tiles_x, int tile_w,
+    int tile_h, float wire_thresh) {
+  __shared__ Stage s;
   const int tile = blockIdx.x;
   const int tx0 = (tile % tiles_x) * tile_w;
   const int ty0 = (tile / tiles_x) * tile_h;
-  const int px = tx0 + threadIdx.x % tile_w;
-  const int py = ty0 + threadIdx.x / tile_w;
+  int lx, ly;
+  kani::tile_pixel(tile_w, tile_h, &lx, &ly);
+  const int px = tx0 + lx;
+  const int py = ty0 + ly;
   const float X = (float)px + 0.5f;
   const float Y = (float)py + 0.5f;
+  const kani::Rect rect = kani::warp_rect(px, py);
 
-  // ---- phase 1: visibility tournament ----
+  // ---- phase 1: visibility tournament over the bbox hits ----
   const int first = tile_start[tile];
   const int n = tile_count[tile];
   float best_z = 1.0f;
   int best = -1;
-  for (int i = 0; i < n; ++i) {
-    const int cid = chunk[first + i];
+  for (int i0 = 0; i0 < n; i0 += kRound) {
+    __syncthreads();  // the previous round has left the list and the ring
+    if (threadIdx.x == 0) s.count = 0;
     __syncthreads();
-    kani::stage_chunk(&s, records, kRecLanes, bbox, cid, (float)tx0,
-                      (float)(tx0 + tile_w), (float)ty0,
+    kani::cull_chunks(&s, bbox, chunk + first + i0, min(kRound, n - i0),
+                      (float)tx0, (float)(tx0 + tile_w), (float)ty0,
                       (float)(ty0 + tile_h));
     __syncthreads();
-    for (int w = 0; w < kani::kMaskWords; ++w) {
-      uint32_t m = s.mask[w];
-      while (m) {
-        const int r = w * 32 + __ffs(m) - 1;
-        m &= m - 1;
-        float z;
-        if (kani::covers_mode<kWire>(s.tri[r], X, Y, wire_thresh, &z) &&
-            z < best_z) {
-          best_z = z;
-          best = cid * kani::kChunk + r;
-        }
+    kani::visit_hits(&s, setup, s.count, rect,
+                     [&](const kani::Planes& t, int id) {
+      float z;
+      if (kani::covers_mode<kWire>(t, X, Y, wire_thresh, &z) &&
+          (z < best_z || (z == best_z && id < best))) {
+        best_z = z;
+        best = id;
       }
-    }
+    });
   }
   if (px >= width || py >= height) return;
 
@@ -102,50 +126,70 @@ __global__ void raster_pixels_kernel(
     int_out[5 * hw + p] = -1;  // tid
     return;
   }
-  float rec[kRecLanes];
-  const float4* src =
+  // The record as 19 float4: lanes 4q .. 4q+3 in rec[q].
+  const float4* rec =
       reinterpret_cast<const float4*>(records + (size_t)best * kRecLanes);
-#pragma unroll
-  for (int q = 0; q < kRecLanes / 4; ++q) {
-    const float4 v = src[q];
-    rec[4 * q + 0] = v.x;
-    rec[4 * q + 1] = v.y;
-    rec[4 * q + 2] = v.z;
-    rec[4 * q + 3] = v.w;
+  float w1, w2;
+  {
+    const float4 e0 = rec[0], e1 = rec[1], e2 = rec[2];  // lanes 0:12
+    const float4 ls = rec[kLsum0 / 4];                   // lanes 72:76
+    static_assert(kLsum0 % 4 == 1, "lsum row sits in lanes 73:76");
+    const float l1 = plane_abc(e0.w, e1.x, e1.y, X, Y);
+    const float l2 = plane_abc(e1.z, e1.w, e2.x, X, Y);
+    const float lsum = plane_abc(ls.y, ls.z, ls.w, X, Y);
+    const float lsafe = lsum != 0.f ? lsum : 1e-30f;
+    w1 = __fdiv_rn(l1, lsafe);
+    w2 = __fdiv_rn(l2, lsafe);
   }
-  const float l1 = plane_abc(rec[3], rec[4], rec[5], X, Y);
-  const float l2 = plane_abc(rec[6], rec[7], rec[8], X, Y);
-  const float lsum =
-      plane_abc(rec[kLsum0], rec[kLsum0 + 1], rec[kLsum0 + 2], X, Y);
-  const float lsafe = lsum != 0.f ? lsum : 1e-30f;
-  const float w1 = __fdiv_rn(l1, lsafe);
-  const float w2 = __fdiv_rn(l2, lsafe);
+  // Varying c: v0 in lane 16 + c, d1 in lane 33 + c, d2 in lane 50 + c.
+  // Four at a time: v0 is one float4, d1 straddles two at offset 1, d2 two
+  // at offset 2.
+  static_assert(kRec0 == 16 && kUsed == 17, "the lane offsets below");
 #pragma unroll
-  for (int c = 0; c < kUsed; ++c) {
-    const float v0 = rec[kRec0 + c];
-    const float d1 = rec[kRec0 + kUsed + c];
-    const float d2 = rec[kRec0 + 2 * kUsed + c];
-    vary_out[c * hw + p] =
-        __fadd_rn(__fadd_rn(v0, __fmul_rn(d1, w1)), __fmul_rn(d2, w2));
+  for (int g = 0; g < 5; ++g) {
+    const float4 a = rec[4 + g];
+    const float4 b0 = rec[8 + g], c0 = rec[12 + g];
+    const float v0[4] = {a.x, a.y, a.z, a.w};
+    float d1[4] = {b0.y, b0.z, b0.w, 0.f};
+    float d2[4] = {c0.z, c0.w, 0.f, 0.f};
+    if (g < 4) {
+      const float4 b1 = rec[9 + g], c1 = rec[13 + g];
+      d1[3] = b1.x;
+      d2[2] = c1.x;
+      d2[3] = c1.y;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = 4 * g + k;
+      if (c < kUsed) {
+        vary_out[c * hw + p] = __fadd_rn(
+            __fadd_rn(v0[k], __fmul_rn(d1[k], w1)), __fmul_rn(d2[k], w2));
+      }
+    }
   }
-  int_out[0 * hw + p] = (int)rec[kPar0];
-  int_out[1 * hw + p] = (int)rec[kPar0 + 1];
-  int_out[2 * hw + p] = (int)rec[kPar0 + 2];
-  int_out[3 * hw + p] = (int)rec[kPar0 + 3] * 65536 + (int)rec[kPar0 + 4];
-  int_out[4 * hw + p] = (int)rec[kPar0 + 5];
+  static_assert(kPar0 == 67, "the material lanes below");
+  const float4 m0 = rec[16], m1 = rec[17], m2 = rec[18];  // lanes 64:76
+  int_out[0 * hw + p] = (int)m0.w;                          // lane 67
+  int_out[1 * hw + p] = (int)m1.x;
+  int_out[2 * hw + p] = (int)m1.y;
+  int_out[3 * hw + p] = (int)m1.z * 65536 + (int)m1.w;
+  int_out[4 * hw + p] = (int)m2.x;                          // lane 72
   int_out[5 * hw + p] = best;
 }
 
 template <bool kWire>
-int launch(const float* records, const float* bbox, const int* tile_start,
-           const int* tile_count, const int* chunk, float* z_out,
-           float* vary_out, int* int_out, int width, int height, int tiles_x,
-           int num_tiles, int tile_w, int tile_h, float wire_thresh,
-           void* stream) {
+int launch(const float* records, const float* setup, const float* bbox,
+           const int* tile_start, const int* tile_count, const int* chunk,
+           float* z_out, float* vary_out, int* int_out, int width, int height,
+           int tiles_x, int num_tiles, int tile_w, int tile_h,
+           float wire_thresh, void* stream) {
   if (num_tiles > 0) {
-    raster_pixels_kernel<kWire><<<num_tiles, tile_w * tile_h, 0,
-                                  (cudaStream_t)stream>>>(
-        records, reinterpret_cast<const float4*>(bbox), tile_start,
+    const int threads = tile_w * tile_h;
+    auto kernel = threads <= 256
+                      ? raster_pixels_kernel<kWire, 256, kWire ? 4 : 6>
+                      : raster_pixels_kernel<kWire, 1024, 1>;
+    kernel<<<num_tiles, threads, 0, (cudaStream_t)stream>>>(
+        records, setup, reinterpret_cast<const float4*>(bbox), tile_start,
         tile_count, chunk, z_out, vary_out, int_out, width, height, tiles_x,
         tile_w, tile_h, wire_thresh);
   }
@@ -154,24 +198,25 @@ int launch(const float* records, const float* bbox, const int* tile_start,
 
 }  // namespace
 
-extern "C" int kani_rasterize_pixels(const float* records, const float* bbox,
-                                     const int* tile_start,
+extern "C" int kani_rasterize_pixels(const float* records, const float* setup,
+                                     const float* bbox, const int* tile_start,
                                      const int* tile_count, const int* chunk,
                                      float* z_out, float* vary_out,
                                      int* int_out, int width, int height,
                                      int tiles_x, int num_tiles, int tile_w,
                                      int tile_h, void* stream) {
-  return launch<false>(records, bbox, tile_start, tile_count, chunk, z_out,
-                       vary_out, int_out, width, height, tiles_x, num_tiles,
-                       tile_w, tile_h, 0.f, stream);
+  return launch<false>(records, setup, bbox, tile_start, tile_count, chunk,
+                       z_out, vary_out, int_out, width, height, tiles_x,
+                       num_tiles, tile_w, tile_h, 0.f, stream);
 }
 
 extern "C" int kani_rasterize_pixels_wireframe(
-    const float* records, const float* bbox, const int* tile_start,
-    const int* tile_count, const int* chunk, float* z_out, float* vary_out,
-    int* int_out, int width, int height, int tiles_x, int num_tiles,
-    int tile_w, int tile_h, float wire_thresh, void* stream) {
-  return launch<true>(records, bbox, tile_start, tile_count, chunk, z_out,
-                      vary_out, int_out, width, height, tiles_x, num_tiles,
-                      tile_w, tile_h, wire_thresh, stream);
+    const float* records, const float* setup, const float* bbox,
+    const int* tile_start, const int* tile_count, const int* chunk,
+    float* z_out, float* vary_out, int* int_out, int width, int height,
+    int tiles_x, int num_tiles, int tile_w, int tile_h, float wire_thresh,
+    void* stream) {
+  return launch<true>(records, setup, bbox, tile_start, tile_count, chunk,
+                      z_out, vary_out, int_out, width, height, tiles_x,
+                      num_tiles, tile_w, tile_h, wire_thresh, stream);
 }

@@ -10,6 +10,9 @@ The lists are CSR-like: one sorted array of ``tile·C + chunk`` keys, built
 with one ``torch.sort``, and per-tile ``start``/``count`` into it, found by
 ``searchsorted``.  A tile keeps at most ``cap`` chunks (the lowest ids);
 the rest are dropped and counted in ``overflow``, never silently.
+``pair_tile`` names the tile of every entry of the sorted array, −1 for the
+entries that are not kept, so a kernel can cut the work by entries instead
+of by tiles (csrc/raster_depth.cu).
 
 Sizing the expansion needs the number of (tile, chunk) pairs on the host:
 that is the one device-to-host synchronisation of a binning call.
@@ -31,6 +34,7 @@ class ChunkBins(NamedTuple):
     start: Tensor     # (num_tiles,) i32 first entry of the tile in ``chunk``
     count: Tensor     # (num_tiles,) i32 entries kept for the tile (≤ cap)
     chunk: Tensor     # (N,) i32 chunk ids grouped by tile, ascending
+    pair_tile: Tensor  # (N,) i32 tile of each entry, −1 where not kept
     overflow: Tensor  # () i32 entries dropped by the per-tile cap
     tiles_x: int
     tiles_y: int
@@ -95,9 +99,14 @@ def bin_tiles(bbox: Tensor, width: int, height: int, tile_w: int,
     start = torch.searchsorted(skey, tids * C)
     raw = torch.searchsorted(skey, (tids + 1) * C) - start
     chunk = torch.where(skey < sentinel, skey % C, -1).to(torch.int32)
+    tile = torch.div(skey, C, rounding_mode="floor")    # num_tiles: padding
+    pos = torch.arange(n_pairs, device=dev) \
+        - start[torch.clamp(tile, max=num_tiles - 1)]
+    kept = (skey < sentinel) & (pos < cap)
     return ChunkBins(
         start=start.to(torch.int32),
         count=torch.clamp(raw, max=cap).to(torch.int32),
         chunk=chunk,
+        pair_tile=torch.where(kept, tile, -1).to(torch.int32),
         overflow=torch.clamp(raw - cap, min=0).sum().to(torch.int32),
         tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)

@@ -12,7 +12,10 @@ Counterpart of ``kanirenderer_tpu/ops/raster_pallas.py``:
   (triangle id, depth, barycentrics), the reference's ``_raster_kernel``
   with depth_only=False, with or without wireframe coverage.
 
-All take binned inputs (ops/binning.bin_tiles).  On a CUDA tensor a
+All take binned inputs (ops/binning.bin_tiles).  K1 and K2 cull by bbox
+first and fetch only the hits' planes from the (T, 16) setup rows
+(csrc/raster_common.cuh); K2 therefore takes the setup rows beside its
+records, whose lanes 0:12 hold the same values.  On a CUDA tensor a
 wrapper launches its kernel and counts the launch in ``launch_counts``; on
 a CPU tensor it runs its plain PyTorch version (``*_plain``), which
 computes the same function with the same floating-point order and serves
@@ -128,10 +131,11 @@ def load_kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(_build()))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.kani_rasterize_depth.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-        lib.kani_rasterize_pixels.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+        lib.kani_rasterize_depth.argtypes = \
+            [ptr] * 4 + [i32, ptr] + [i32] * 5 + [ptr]
+        lib.kani_rasterize_pixels.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
         lib.kani_rasterize_pixels_wireframe.argtypes = \
-            [ptr] * 8 + [i32] * 6 + [f32, ptr]
+            [ptr] * 9 + [i32] * 6 + [f32, ptr]
         lib.kani_rasterize_visibility.argtypes = \
             [ptr] * 8 + [i32] * 7 + [f32, ptr]
         for fn in (lib.kani_rasterize_depth, lib.kani_rasterize_pixels,
@@ -166,6 +170,8 @@ def _check_launch(rows: Tensor, lanes: int, bbox: Tensor, bins: ChunkBins,
     _check(bins.start, "bins.start", (nt,), torch.int32, dev)
     _check(bins.count, "bins.count", (nt,), torch.int32, dev)
     _check(bins.chunk, "bins.chunk", bins.chunk.shape, torch.int32, dev)
+    _check(bins.pair_tile, "bins.pair_tile", bins.chunk.shape, torch.int32,
+           dev)
     block = bins.tile_w * bins.tile_h
     if block % 32 or not 128 <= block <= 1024:
         raise ValueError(f"tile {bins.tile_w}x{bins.tile_h}: the block "
@@ -188,35 +194,41 @@ def rasterize_depth(setup: Tensor, bbox: Tensor, bins: ChunkBins,
         return rasterize_depth_plain(setup, bbox, bins, dim)
     _check_launch(setup, NS, bbox, bins, dim, dim)
     lib = load_kernels()
-    out = torch.empty((dim, dim), dtype=torch.float32, device=setup.device)
+    # The kernel merges into a cleared map with atomicMin.
+    out = torch.ones((dim, dim), dtype=torch.float32, device=setup.device)
     err = lib.kani_rasterize_depth(
-        *(t.data_ptr() for t in (setup, bbox, bins.start, bins.count,
-                                 bins.chunk, out)),
-        dim, dim, bins.tiles_x, bins.tiles_x * bins.tiles_y, bins.tile_w,
-        bins.tile_h, _stream())
+        setup.data_ptr(), bbox.data_ptr(), bins.pair_tile.data_ptr(),
+        bins.chunk.data_ptr(), bins.chunk.shape[0], out.data_ptr(), dim, dim,
+        bins.tiles_x, bins.tile_w, bins.tile_h, _stream())
     launch_counts["rasterize_depth"] += 1
     if err:
         raise RuntimeError(f"rasterize_depth launch failed: CUDA error {err}")
     return out
 
 
-def rasterize_pixels(records: Tensor, bbox: Tensor, bins: ChunkBins,
-                     width: int, height: int, wireframe: bool = False,
+def rasterize_pixels(records: Tensor, setup: Tensor, bbox: Tensor,
+                     bins: ChunkBins, width: int, height: int,
+                     wireframe: bool = False,
                      wire_thresh: float = 0.7) -> PixelBuffer:
     """K2 (K2w with ``wireframe``): visibility + interpolation →
     PixelBuffer (with ``tid``).  ``records``: (T, 76) f32 from
-    ops/interpolate.build_tri_records_corners."""
+    ops/interpolate.build_tri_records_corners; ``setup``/``bbox``: the
+    (T, 16)/(T, 4) f32 rows of the same triangles' TriangleSetup (the
+    visibility phase reads its planes from ``setup``, whose lanes 0:12
+    equal the records')."""
     if records.device.type == "cpu":
-        return rasterize_pixels_plain(records, bbox, bins, width, height,
-                                      wireframe, wire_thresh)
+        return rasterize_pixels_plain(records, setup, bbox, bins, width,
+                                      height, wireframe, wire_thresh)
     _check_launch(records, FAT_LANES, bbox, bins, width, height)
+    _check(setup, "setup", (records.shape[0], NS), torch.float32,
+           records.device)
     lib = load_kernels()
     dev = records.device
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     vary = torch.empty((USED, height, width), dtype=torch.float32, device=dev)
     ints = torch.empty((6, height, width), dtype=torch.int32, device=dev)
-    args = [*(t.data_ptr() for t in (records, bbox, bins.start, bins.count,
-                                      bins.chunk, z, vary, ints)),
+    args = [*(t.data_ptr() for t in (records, setup, bbox, bins.start,
+                                      bins.count, bins.chunk, z, vary, ints)),
             width, height, bins.tiles_x, bins.tiles_x * bins.tiles_y,
             bins.tile_w, bins.tile_h]
     if wireframe:
@@ -280,8 +292,9 @@ def _pixel_buffer(z, vary, ints, bins) -> PixelBuffer:
 # Plain PyTorch versions.  They walk the binned (tile, chunk) pairs in
 # batches: every triangle of the pair's chunk against every pixel of the
 # pair's tile, the triangles whose bbox misses the tile masked out exactly
-# as the kernels skip them.  Memory per batch ≈ 40 bytes · PAIR_BATCH ·
-# CHUNK_SIZE · tile pixels (≈ 0.7 GB with 16×16 tiles).
+# as the kernels skip them.  They read the per-tile ``start``/``count`` of
+# the bins and never ``pair_tile``.  Memory per batch ≈ 40 bytes ·
+# PAIR_BATCH · CHUNK_SIZE · tile pixels (≈ 0.7 GB with 16×16 tiles).
 
 PAIR_BATCH = 512
 
@@ -394,13 +407,15 @@ def _pixel_centres(width: int, height: int, device):
     return X, Y
 
 
-def rasterize_pixels_plain(records: Tensor, bbox: Tensor, bins: ChunkBins,
-                           width: int, height: int, wireframe: bool = False,
+def rasterize_pixels_plain(records: Tensor, setup: Tensor, bbox: Tensor,
+                           bins: ChunkBins, width: int, height: int,
+                           wireframe: bool = False,
                            wire_thresh: float = 0.7) -> PixelBuffer:
     """Plain PyTorch K2/K2w (same inputs and result as
-    ``rasterize_pixels``): the phase-1 tournament, then phase 2."""
+    ``rasterize_pixels``): the phase-1 tournament on the setup rows, then
+    phase 2 on the records."""
     dev = records.device
-    tid, z_out = _tournament(records, bbox, bins, width, height,
+    tid, z_out = _tournament(setup, bbox, bins, width, height,
                              wire_thresh if wireframe else None)
 
     # Phase 2: interpolate the winner's record at the pixel centre.

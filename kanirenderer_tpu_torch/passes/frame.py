@@ -210,7 +210,8 @@ def render_frame(scene: Scene, state: FrameState,
 
     # main raster + varying interpolation
     pix = raster_cuda.rasterize_pixels(
-        g.records, g.setup.bbox, g.bins, cfg.width, cfg.height,
+        g.records, g.setup.setup, g.setup.bbox, g.bins, cfg.width,
+        cfg.height,
         wireframe=cfg.mode == RenderMode.WIREFRAME,
         wire_thresh=cfg.wire_thresh_px)
 

@@ -13,7 +13,9 @@ Tolerances:
 * K2: the reference's parity bounds (test_binning_pallas.py:79-84) —
   coverage mask identical, winning triangle differs on ≤ 0.2% of pixels,
   depth within 1e-6 and integer planes equal where it agrees, varyings
-  within 1e-5 relative to each plane's magnitude.
+  within 1e-5 relative to each plane's magnitude;
+* the adversarial cases (ops/raster_cases.py) have exactly representable
+  planes, so there the plain rasters equal the brute-force ones bit for bit.
 """
 
 import numpy as np
@@ -30,6 +32,7 @@ from kanirenderer_tpu_torch.core.types import (CHUNK_SIZE, RenderConfig,
                                                RenderMode, camera_state,
                                                default_lights, frame_state)
 from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
+from kanirenderer_tpu_torch.ops import raster_cases
 from kanirenderer_tpu_torch.ops import raster_cuda as rc
 from kanirenderer_tpu_torch.ops import raster_xla as port_xla
 from kanirenderer_tpu_torch.ops import vertex
@@ -81,7 +84,8 @@ def test_depth_plain_matches_pallas_and_xla(geometry, pallas_loop_form):
 
 def test_pixels_plain_matches_pallas(geometry, pallas_loop_form):
     g = geometry
-    ours = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
+    ours = rc.rasterize_pixels(g.records, g.setup.setup, g.setup.bbox,
+                               g.bins, W, H)
     cfg = kani.RenderConfig(width=W, height=H, shadow_dim=D)
     rec = np.zeros((g.records.shape[0], 128), np.float32)
     rec[:, :FAT_LANES] = g.records.numpy()
@@ -137,7 +141,7 @@ def test_depth_ties_keep_the_lower_triangle_id():
              290: (44, 60, 1.0)}
     setup, bbox, records = _band_setup(bands)
     bins = bin_tiles(bbox, 64, 32, 16, 16, cap=64)
-    pix = rc.rasterize_pixels(records, bbox, bins, 64, 32)
+    pix = rc.rasterize_pixels(records, setup, bbox, bins, 64, 32)
     inside = torch.zeros((32, 64), dtype=torch.bool)
     inside[4:, 8:40] = True
     assert torch.equal(pix.mask, inside)
@@ -147,7 +151,7 @@ def test_depth_ties_keep_the_lower_triangle_id():
 
     bands[200] = (8, 40, 0.25)                # nearer, higher id
     setup, bbox, records = _band_setup(bands, height=64)
-    pix = rc.rasterize_pixels(records, bbox,
+    pix = rc.rasterize_pixels(records, setup, bbox,
                               bin_tiles(bbox, 64, 32, 16, 16, cap=64), 64, 32)
     assert (pix.tid[inside] == 200).all()
     depth = rc.rasterize_depth(setup, bbox,
@@ -161,7 +165,8 @@ def test_pixels_plain_matches_brute_force_interpolation(geometry):
     brute-force visibility buffer (the XLA backend's path), where the
     winning triangle agrees."""
     g = geometry
-    ours = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
+    ours = rc.rasterize_pixels(g.records, g.setup.setup, g.setup.bbox,
+                               g.bins, W, H)
     vis = raster_xla.rasterize_xla(jnp.asarray(g.setup.setup.numpy()), W, H)
     same = ours.tid.numpy() == np.asarray(vis.tri)
     # per-vertex tables in the reference's layout: one vertex per corner
@@ -196,7 +201,8 @@ def test_brute_force_oracle(geometry):
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(vis.bary.numpy()[same],
                                np.asarray(ref.bary)[same], rtol=0, atol=1e-4)
-    pix = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
+    pix = rc.rasterize_pixels(g.records, g.setup.setup, g.setup.bbox,
+                              g.bins, W, H)
     same = pix.tid == vis.tri
     assert (~same).float().mean() <= 0.002
     torch.testing.assert_close(pix.z[same], vis.z[same], rtol=0, atol=1e-6)
@@ -242,7 +248,7 @@ def test_plain_rasters_match_oracle_on_random_triangles(seed):
     records = torch.zeros((st.setup.shape[0], FAT_LANES))
     records[:, :16] = st.setup
     bins = bin_tiles(st.bbox, W2, H2, 16, 16, cap=640)
-    pix = rc.rasterize_pixels(records, st.bbox, bins, W2, H2)
+    pix = rc.rasterize_pixels(records, st.setup, st.bbox, bins, W2, H2)
     vis = port_xla.rasterize_xla(st.setup, W2, H2)
     assert 0.2 < pix.mask.float().mean() < 1.0
     same = pix.tid == vis.tri
@@ -266,3 +272,74 @@ def _within_ulps(z, want, setup, tid):
     scale = r[..., 9].abs() * x + r[..., 10].abs() * y + r[..., 11].abs()
     return (z - want).abs() <= 4 * 2.0 ** -24 * scale + 1e-7
 
+
+
+def _kept_rows(case):
+    """The case's setup rows with the triangles of dropped chunks made
+    invalid, as numpy: what a raster that honours the cap sees."""
+    invalid = torch.zeros(16)
+    invalid[2] = -1.0
+    return torch.where(case.kept[:, None], case.setup, invalid).numpy()
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_plain_rasters_match_oracle_on_adversarial_cases(which):
+    """Hit-list overflow, a capped tile with counted overflow, empty
+    tiles, depth ties across chunks, a ragged raster and NaN planes: the
+    plain K2 and K1 against the reference's brute-force rasters, exact."""
+    case = raster_cases.adversarial_cases("cpu", cap=8)[which]
+    W2, H2 = case.width, case.height
+    want_overflow = 0 if which == 0 else 2 * 10
+    assert int(case.bins.overflow) == want_overflow
+    assert int(case.bins.count.max()) == (24, 8)[which]
+    assert (case.bins.count == 0).any()
+    assert case.setup.isnan().any() and (W2 % 16 or which == 1)
+    pix = rc.rasterize_pixels(case.records, case.setup, case.bbox, case.bins,
+                              W2, H2)
+    vis = raster_xla.rasterize_xla(jnp.asarray(_kept_rows(case)), W2, H2)
+    np.testing.assert_array_equal(pix.tid.numpy(), np.asarray(vis.tri))
+    np.testing.assert_array_equal(pix.z.numpy(), np.asarray(vis.z))
+    assert 0.2 < pix.mask.float().mean() < 1.0
+    assert int(pix.overflow) == want_overflow
+    # the lowest id among the nearest bands wins each pixel
+    tid = pix.tid[pix.mask].to(torch.int64)
+    assert not case.setup[tid].isnan().any() and case.kept[tid].all()
+    # phase 2 reads the winner's record
+    np.testing.assert_array_equal(
+        pix.mat_id[pix.mask].numpy(),
+        case.records[tid, 67].to(torch.int32).numpy())
+
+    sq = raster_cases.adversarial_cases("cpu", cap=8, square=True)[which]
+    depth = rc.rasterize_depth(sq.setup, sq.bbox, sq.bins, sq.width)
+    want = raster_xla.rasterize_depth_xla(jnp.asarray(_kept_rows(sq)),
+                                          sq.width)
+    np.testing.assert_array_equal(depth.numpy(), np.asarray(want))
+    assert (depth < 1.0).any() and (depth == 1.0).any()
+
+
+def test_record_lanes_equal_setup_rows(geometry):
+    """K2's visibility phase reads its planes from the setup rows and its
+    second phase from the records: lanes 0:16 of a record are the setup
+    row."""
+    g = geometry
+    assert torch.equal(g.records[:, :16], g.setup.setup)
+    assert g.setup.setup.shape == (g.records.shape[0], 16)
+
+
+@pytest.mark.parametrize("cap", [640, 3])
+def test_pair_tile_names_the_kept_entries(geometry, cap):
+    """``ChunkBins.pair_tile`` holds the tile of every kept entry of the
+    sorted list and -1 elsewhere, and the plain rasters never read it."""
+    st = geometry.shadow_setup
+    bins = bin_tiles(st.bbox, D, D, 16, 16, cap)
+    tile, chunk = rc._pairs(bins)
+    live = bins.pair_tile >= 0
+    assert bins.pair_tile.shape == bins.chunk.shape
+    assert bins.pair_tile.dtype == torch.int32
+    assert torch.equal(bins.pair_tile[live].to(torch.int64), tile)
+    assert torch.equal(bins.chunk[live].to(torch.int64), chunk)
+    assert (int(bins.overflow) > 0) == (cap == 3)
+    assert int((~live & (bins.chunk >= 0)).sum()) == int(bins.overflow)
+    scrambled = bins._replace(pair_tile=torch.full_like(bins.pair_tile, 7))
+    assert torch.equal(rc.rasterize_depth(st.setup, st.bbox, bins, D),
+                       rc.rasterize_depth(st.setup, st.bbox, scrambled, D))

@@ -55,7 +55,8 @@ def frame():
         [-900.0, 180.0, 0.0], 0.0, np.deg2rad(-5.0), "cpu"), lights)
     g = frame_geometry(scene, state,
                        port.RenderConfig(width=W, height=H, shadow_dim=D))
-    pix = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
+    pix = rc.rasterize_pixels(g.records, g.setup.setup, g.setup.bbox,
+                              g.bins, W, H)
     st = g.shadow_setup
     smap = rc.rasterize_depth(st.setup, st.bbox, g.shadow_bins, D)
     return scene, state, g, pix, smap

@@ -64,8 +64,8 @@ def _unstable(rows, bbox, bins, fn):
 def test_wireframe_pixels_plain_matches_pallas(wire_geometry,
                                                pallas_loop_form):
     g = wire_geometry
-    ours = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H,
-                               wireframe=True)
+    ours = rc.rasterize_pixels(g.records, g.setup.setup, g.setup.bbox,
+                               g.bins, W, H, wireframe=True)
     assert ours.tid.numpy().max() >= 0 and 0.2 < ours.mask.float().mean() \
         < 0.8
     cfg = kani.RenderConfig(width=W, height=H, shadow_dim=D)
@@ -74,8 +74,9 @@ def test_wireframe_pixels_plain_matches_pallas(wire_geometry,
     ref = raster_pallas.rasterize_pixels(ref_setup(g.setup),
                                          jnp.asarray(rec), cfg,
                                          wireframe=True)
-    unstable = _unstable(g.records, g.setup.bbox, g.bins,
-                         rc.rasterize_pixels)
+    unstable = _unstable(
+        g.records, g.setup.bbox, g.bins,
+        lambda rec, *rest: rc.rasterize_pixels(rec, g.setup.setup, *rest))
     assert unstable.mean() < 0.005, unstable.mean()
     differ = ours.mask.numpy() != np.asarray(ref.mask)
     print(f"K2w vs Pallas: {unstable.sum()} of {unstable.size} pixels "
@@ -94,7 +95,8 @@ def test_wireframe_pixels_plain_matches_pallas(wire_geometry,
                                       np.asarray(getattr(ref, f))[ok],
                                       err_msg=f)
     # wireframe coverage is interior coverage near an edge
-    full = rc.rasterize_pixels(g.records, g.setup.bbox, g.bins, W, H)
+    full = rc.rasterize_pixels(g.records, g.setup.setup, g.setup.bbox,
+                               g.bins, W, H)
     assert (full.mask | ~ours.mask).all()
 
 
@@ -123,7 +125,8 @@ def test_visibility_plain_matches_pallas(geometry, wire_geometry,
     assert (ours.z.numpy()[bg] == 1.0).all() \
         and (ours.bary.numpy()[bg] == 0.0).all()
     # K3's winners are K2's
-    pix = rc.rasterize_pixels(g.records, st.bbox, g.bins, W, H, wireframe)
+    pix = rc.rasterize_pixels(g.records, st.setup, st.bbox, g.bins, W, H,
+                              wireframe)
     assert torch.equal(pix.tid, ours.tri) and torch.equal(pix.z, ours.z)
 
 
