@@ -20,7 +20,7 @@ case); any failure exits non-zero:
   7. K2w (K2's wireframe variant) against its plain version at 1920×1080,
      bench pose, the camera setup without back-face culling, bit-equal;
   8. K3 (visibility raster) against its plain version at 1920×1080, with
-     and without wireframe coverage;
+     and without wireframe coverage, bit-equal;
   9. small frames: every other configuration of flythrough.MODE_CONFIGS
      through the kernels against the CPU path, golden criterion (HDR at
      255× its float16 values);
@@ -29,10 +29,12 @@ case); any failure exits non-zero:
      per frame;
  11. the visibility entry (ops.raster_cuda.rasterize_config, which no
      frame path calls) over the same 10 poses, with and without wireframe;
- 12. K1, K2 and K2w against their plain versions on the adversarial cases
-     of ops/raster_cases.py (hit-list overflow, tiles at the 640-chunk cap
-     with counted overflow, empty tiles, depth ties across chunks, a
-     ragged raster, NaN planes), bit-equal.
+ 12. K1, K2, K2w and K3 (with and without wireframe) against their plain
+     versions on the adversarial cases of ops/raster_cases.py (hit-list
+     overflow, tiles at the 640-chunk cap with counted overflow, empty
+     tiles, depth ties across chunks, a ragged raster, NaN planes,
+     wireframe interiors, infinite and overflowing coefficients),
+     bit-equal.
 Then a JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -46,11 +48,9 @@ import time
 WARMUP, FRAMES = 3, 30
 MODE_FRAMES = 10
 # Kernel vs plain version, same inputs on the card.  Both evaluate every
-# plane in the same order with no fused multiply-add, so K1, K2 and K2w
-# must be bit-equal (tolerance 0: torch.equal on every output); K3 keeps
-# the parity bounds of the reference's visibility buffer tests.
-K1_TOL = K2_TOL = 0.0
-K3_TRI_FRAC, K3_Z_TOL, K3_BARY_TOL = 0.998, 1e-6, 1e-5
+# plane in the same order with no fused multiply-add, so every kernel must
+# be bit-equal (tolerance 0: torch.equal on every output).
+K1_TOL = K2_TOL = K3_TOL = 0.0
 PIXEL_FIELDS = ("tid", "mask", "z", "varyings", "mat_id", "tex_w", "tex_h",
                 "blk_base", "blk_w")
 # The golden criterion (tests/test_golden.py:65-68).
@@ -61,9 +61,11 @@ HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
 # FP32 operations per (triangle, pixel) evaluation, counted from the
 # kernels' source: the five-plane coverage (4 planes of 2 mul + 2 add, and
 # 1 − z) and the depth min or tournament compare, 18 in all; the wireframe
-# edge distances where that coverage holds, 3 × (a² + b² + 1e-30: 4; sqrt,
-# 1/x: 2; (a·X + c)·g + (b·Y)·g: 6) plus 2 min and the threshold compare.
-OPS_COVER, OPS_WIRE = 18, 39
+# edge distances where that coverage holds, 3 × ((a·X + c)·g + (b·Y)·g: 6)
+# plus 2 min and the threshold compare, 21.  The edge scales g depend on
+# the triangle only: 3 × (a² + b² + 1e-30: 4; sqrt, 1/x: 2) once per bbox
+# hit of a tile, whatever computes them.
+OPS_COVER, OPS_WIRE, OPS_SCALES = 18, 21, 18
 # Per covered pixel after the tournament: K2's barycentrics (3 planes, 2
 # divisions) and 17 varyings of 2 mul + 2 add; K3's 3 planes, 2 adds and
 # 2 divisions.
@@ -118,30 +120,26 @@ def grid_stats(bins, hit_evals: int) -> str:
             f"per pair {hits / max(pairs, 1):.2f} of 128")
 
 
-def raster_work(rows, bbox, bins, width, height, wire):
+def raster_work(rows, bbox, bins, width, height, wire_thresh=None):
     """(triangle, pixel) evaluations the kernel makes on these inputs: the
     bbox-hitting triangles of every (tile, chunk) pair × tile pixels, and
-    with ``wire`` the evaluations whose five-plane coverage holds (where
-    the kernel goes on to the edge distances)."""
-    import torch
-    from kanirenderer_tpu_torch.core.types import CHUNK_SIZE
+    with ``wire_thresh`` the evaluations whose five-plane coverage holds
+    (where the kernel goes on to the edge distances) and those of them
+    within the threshold of an edge."""
     from kanirenderer_tpu_torch.ops import raster_cuda as rc
     tile, chunk = rc._pairs(bins)
-    tw, th = bins.tile_w, bins.tile_h
-    hits = covered = 0
-    lane = torch.arange(CHUNK_SIZE, device=bbox.device)
+    hits = covered = passed = 0
     for s in range(0, tile.shape[0], rc.PAIR_BATCH):
         t, c = tile[s:s + rc.PAIR_BATCH], chunk[s:s + rc.PAIR_BATCH]
-        b = bbox[c[:, None] * CHUNK_SIZE + lane]
-        tx0 = (t % bins.tiles_x * tw).to(torch.float32)[:, None]
-        ty0 = (t // bins.tiles_x * th).to(torch.float32)[:, None]
-        hit = (b[..., 0] < tx0 + tw) & (b[..., 2] > tx0) \
-            & (b[..., 1] < ty0 + th) & (b[..., 3] > ty0)
-        hits += int(hit.sum()) * tw * th
-        if wire:
+        _, hit = rc._bbox_hits(bbox, t, c, bins)
+        hits += int(hit.sum()) * bins.tile_w * bins.tile_h
+        if wire_thresh is not None:
             cov, _, _ = rc._eval_pairs(rows, bbox, t, c, bins, width, height)
             covered += int(cov.sum())
-    return hits, covered
+            cov, _, _ = rc._eval_pairs(rows, bbox, t, c, bins, width, height,
+                                       wire_thresh)
+            passed += int(cov.sum())
+    return hits, covered, passed
 
 
 def bound(bytes_moved: int, ops: int) -> tuple:
@@ -224,7 +222,7 @@ def main() -> int:
                                              g.shadow_bins, D), 20)
     pms1 = cuda_ms(lambda: rc.rasterize_depth_plain(sh.setup, sh.bbox,
                                                     g.shadow_bins, D), 2)
-    hits1, _ = raster_work(sh.setup, sh.bbox, g.shadow_bins, D, D, False)
+    hits1, _, _ = raster_work(sh.setup, sh.bbox, g.shadow_bins, D, D)
     b = g.shadow_bins
     print(f"phase 3 K1 {D}x{D}: max|kernel-plain| {err1:.3g} "
           f"(tol {K1_TOL}), bit-equal {torch.equal(k1, p1)}, covered "
@@ -251,7 +249,7 @@ def main() -> int:
                                               g.bins, W, H), 20)
     pms2 = cuda_ms(lambda: rc.rasterize_pixels_plain(
         g.records, cs.setup, cs.bbox, g.bins, W, H), 2)
-    hits2, _ = raster_work(cs.setup, cs.bbox, g.bins, W, H, False)
+    hits2, _, _ = raster_work(cs.setup, cs.bbox, g.bins, W, H)
     b = g.bins
     print(f"phase 4 K2 {W}x{H}: outputs not bit-equal {differ} (tol "
           f"{K2_TOL}), max|kernel-plain| {err2:.3g}, covered "
@@ -341,13 +339,17 @@ def main() -> int:
         gw.records, ws.setup, ws.bbox, gw.bins, W, H, True, thresh), 20)
     pms2w = cuda_ms(lambda: rc.rasterize_pixels_plain(
         gw.records, ws.setup, ws.bbox, gw.bins, W, H, True, thresh), 2)
-    hits2w, cov2w = raster_work(ws.setup, ws.bbox, gw.bins, W, H, True)
+    hits2w, cov2w, pass2w = raster_work(ws.setup, ws.bbox, gw.bins, W, H,
+                                        thresh)
     b = gw.bins
+    tile_hits2w = hits2w // (b.tile_w * b.tile_h)
     print(f"phase 7 K2w {W}x{H}: outputs not bit-equal {differ} (tol "
           f"{K2_TOL}), max|kernel-plain| {err2w:.3g}, covered "
           f"{k2w.mask.float().mean().item():.3f}, {grid_stats(b, hits2w)}, "
           f"largest tile {max_chunks} chunks (cap "
-          f"{wcfg.max_chunks_per_tile}), overflow {int(b.overflow)}, "
+          f"{wcfg.max_chunks_per_tile}), overflow {int(b.overflow)}, of "
+          f"{hits2w} bbox-hit evaluations {cov2w} pass the five planes and "
+          f"{pass2w} the threshold too, "
           f"{ms2w:.3f} ms vs plain {pms2w:.1f} ms", flush=True)
     if differ or not k2w.mask.any():
         fail("K2w disagrees with its plain version")
@@ -359,46 +361,50 @@ def main() -> int:
         max_abs_err=err2w, ms=ms2w, plain_ms=pms2w,
         bytes=nbytes(gw.records, ws.setup, ws.bbox, b.start, b.count,
                      b.chunk) + px_out,
-        ops=hits2w * OPS_COVER + cov2w * OPS_WIRE
+        ops=hits2w * OPS_COVER + cov2w * OPS_WIRE + tile_hits2w * OPS_SCALES
         + int(k2w.mask.sum()) * OPS_K2_PIXEL)
     del k2w, p2w
 
     # ---- phase 8: K3 against its plain version ----
-    k3_err, k3_ms = 0.0, {}
+    k3_err = 0.0
     for wire, gg in ((False, g), (True, gw)):
         st = gg.setup
         k3 = rc.rasterize(st.setup, st.bbox, gg.bins, W, H, wire, thresh)
         p3 = rc.rasterize_plain(st.setup, st.bbox, gg.bins, W, H, wire,
                                 thresh)
         torch.cuda.synchronize()
-        same = k3.tri == p3.tri
-        agree = same.float().mean().item()
-        z_err = (k3.z - p3.z)[same].abs().max().item()
-        b_err = (k3.bary - p3.bary)[same].abs().max().item()
-        k3_ms[wire] = cuda_ms(lambda: rc.rasterize(
+        differ = [f for f, a, b in zip(k3._fields, k3, p3)
+                  if not torch.equal(a, b)]
+        err3 = max((k3.z - p3.z).abs().max().item(),
+                   (k3.bary - p3.bary).abs().max().item())
+        ms3 = cuda_ms(lambda: rc.rasterize(
             st.setup, st.bbox, gg.bins, W, H, wire, thresh), 20)
         pms3 = cuda_ms(lambda: rc.rasterize_plain(
             st.setup, st.bbox, gg.bins, W, H, wire, thresh), 2)
-        print(f"phase 8 K3 {W}x{H} wireframe={wire}: tri agrees {agree:.5f} "
-              f"(tol {K3_TRI_FRAC}), z {z_err:.3g} (tol {K3_Z_TOL}), bary "
-              f"{b_err:.3g} (tol {K3_BARY_TOL}), covered "
-              f"{(k3.tri >= 0).float().mean().item():.3f}, "
-              f"{k3_ms[wire]:.3f} ms vs plain {pms3:.1f} ms", flush=True)
-        if not (agree >= K3_TRI_FRAC and z_err <= K3_Z_TOL
-                and b_err <= K3_BARY_TOL):
+        print(f"phase 8 K3 {W}x{H} wireframe={wire}: outputs not bit-equal "
+              f"{differ} (tol {K3_TOL}), max|kernel-plain| {err3:.3g}, "
+              f"covered {(k3.tri >= 0).float().mean().item():.3f}, "
+              f"{ms3:.3f} ms vs plain {pms3:.1f} ms", flush=True)
+        if differ or not (k3.tri >= 0).any():
             fail(f"K3 (wireframe={wire}) disagrees with its plain version")
-        k3_err = max(k3_err, z_err, b_err)
-        if not wire:
-            hits3, _ = raster_work(st.setup, st.bbox, gg.bins, W, H, False)
-            bb = gg.bins
+        k3_err = max(k3_err, err3)
+        bb = gg.bins
+        bytes3 = nbytes(st.setup, st.bbox, bb.start, bb.count, bb.chunk,
+                        k3.tri, k3.z, k3.bary)
+        ops3 = int((k3.tri >= 0).sum()) * OPS_K3_PIXEL
+        if wire:  # gw's bins: the work counted in phase 7
+            ops3 += hits2w * OPS_COVER + cov2w * OPS_WIRE \
+                + tile_hits2w * OPS_SCALES
+            b_ms, b_by = bound(bytes3, ops3)
+            kernels["rasterize_visibility"].update(
+                ms_wireframe=ms3, plain_ms_wireframe=pms3,
+                bound_ms_wireframe=b_ms, bound_by_wireframe=b_by)
+        else:     # g's bins: phase 4
             kernels["rasterize_visibility"] = dict(
                 source="kanirenderer_tpu_torch/csrc/raster_visibility.cu",
                 replaces="kanirenderer_tpu/ops/raster_pallas.py:410",
-                ms=k3_ms[wire], plain_ms=pms3,
-                bytes=nbytes(st.setup, st.bbox, bb.start, bb.count, bb.chunk,
-                             k3.tri, k3.z, k3.bary),
-                ops=hits3 * OPS_COVER + int((k3.tri >= 0).sum())
-                * OPS_K3_PIXEL)
+                ms=ms3, plain_ms=pms3, bytes=bytes3,
+                ops=ops3 + hits2 * OPS_COVER)
         del k3, p3
     kernels["rasterize_visibility"]["max_abs_err"] = k3_err
 
@@ -480,12 +486,17 @@ def main() -> int:
                         raster_cases.adversarial_cases(dev, square=True)):
         differ = []
         for wire in (False, True):
-            args = (case.records, case.setup, case.bbox, case.bins,
-                    case.width, case.height, wire, thresh)
-            k, p = rc.rasterize_pixels(*args), rc.rasterize_pixels_plain(*args)
+            args = (case.setup, case.bbox, case.bins, case.width,
+                    case.height, wire, raster_cases.WIRE_THRESH)
+            k = rc.rasterize_pixels(case.records, *args)
+            p = rc.rasterize_pixels_plain(case.records, *args)
+            k3, p3 = rc.rasterize(*args), rc.rasterize_plain(*args)
             torch.cuda.synchronize()
             differ += [f"{'K2w' if wire else 'K2'}.{f}"
                        for f in pixels_differ(k, p)]
+            differ += [f"{'K3w' if wire else 'K3'}.{f}"
+                       for f, a, b in zip(k3._fields, k3, p3)
+                       if not torch.equal(a, b)]
             won = k.tid[k.mask].to(torch.int64)
             if not k.mask.any() or not case.kept[won].all():
                 fail(f"phase 12 {case.name}: implausible winners")
@@ -499,8 +510,9 @@ def main() -> int:
               f"{sq.width}²), {case.setup.shape[0]} triangles, chunks per "
               f"tile max {int(b.count.max())}, "
               f"{int((b.count == 0).sum())} of {b.count.numel()} tiles "
-              f"empty, overflow {int(b.overflow)}, NaN rows "
-              f"{int(case.setup.isnan().any(1).sum())}, covered "
+              f"empty, overflow {int(b.overflow)}, rows with NaN "
+              f"{int(case.setup.isnan().any(1).sum())}, with infinities "
+              f"{int(case.setup.isinf().any(1).sum())}, wireframe covered "
               f"{k.mask.float().mean().item():.3f}, outputs not bit-equal "
               f"{differ}", flush=True)
         if differ:
@@ -517,7 +529,9 @@ def main() -> int:
         k.update(name=name, route="cuda", library_ms=None)
         if not k.get("launches"):
             fail(f"{name} was never launched on its path")
-        rows.append({f: k[f] for f in order})
+        # K3's row also carries its wireframe variant's numbers.
+        rows.append({f: k[f] for f in (*order, *(
+            f for f in k if f.endswith("_wireframe")))})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

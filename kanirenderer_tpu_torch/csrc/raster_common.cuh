@@ -8,18 +8,20 @@
 // whose pixel bbox overlaps the tile are evaluated, and every thread of a
 // warp visits exactly the same triangles (no divergence).
 //
-// Two ways to get there:
-//  * K1 and K2 (HitStage, cull_chunks, visit_hits): bbox first.  The warps
-//    test the chunks' bboxes (2 KB per chunk) and append the global row ids
-//    of the hits to a list in shared memory; only the hits' planes (48 bytes
-//    each) are then fetched, with cp.async into a three-stage ring, so the
-//    next batches load while this one is evaluated.  Before a warp
-//    evaluates a batch, each lane takes one hit and asks whether any of its
-//    edge planes is negative over the whole rectangle of the warp's pixels
-//    (may_cover); the warp then visits only the hits that survive.  The
-//    test is exact, not approximate: see edge_max.
-//  * K3 (ChunkStage, stage_chunk): stages all 128 triangles' planes of a
-//    chunk and a 128-bit mask of the bbox hits.
+// All kernels go bbox first (HitStage, cull_chunks, visit_hits).  The warps
+// test the chunks' bboxes (2 KB per chunk) and append the global row ids
+// of the hits to a list in shared memory; only the hits' planes (48 bytes
+// each) are then fetched, with cp.async into a three-stage ring, so the
+// next batches load while this one is evaluated.  Before a warp
+// evaluates a batch, each lane takes one hit and asks whether any of its
+// edge planes is negative over the whole rectangle of the warp's pixels
+// (may_cover) and, for wireframe coverage, whether all of its edges are
+// farther than the threshold from every pixel of the rectangle (may_pass);
+// the warp then visits only the hits that survive.  Both tests are exact,
+// not approximate: see edge_max and edge_dist_min.  In wireframe mode the
+// lane also computes its hit's three edge scales g, once for the warp, and
+// the visiting threads take them from it by shuffle.  K2, K2w and K3 share
+// the whole loop (tile_tournament).
 //
 // Floating-point order: a plane is evaluated as (a*X + c) + b*Y in round-to-
 // nearest with no fused multiply-add, the order of the reference Pallas
@@ -37,8 +39,7 @@
 
 namespace kani {
 
-constexpr int kChunk = 128;        // triangles per chunk (CHUNK_SIZE)
-constexpr int kMaskWords = kChunk / 32;
+constexpr int kChunk = 128;  // triangles per chunk (CHUNK_SIZE)
 
 __device__ __forceinline__ float plane(float a, float b, float c, float X,
                                        float Y) {
@@ -66,73 +67,62 @@ __device__ __forceinline__ bool covers(const Planes& t, float X, float Y,
          __fsub_rn(1.f, zz) >= 0.f;
 }
 
-// Distance of pixel centre (X, Y) to edge (a, b, c) in pixels, in the
-// order of the reference's wireframe coverage (raster_pallas.py:491-518):
-// d = (a*X + c)*g + (b*Y)*g with g = 1/sqrt(a^2 + b^2 + 1e-30).  g is
-// 1/sqrt in round-to-nearest (not the approximate rsqrtf), which is what
-// 1.0 / torch.sqrt computes on the card, so kernel and plain version agree
-// bit for bit.
-__device__ __forceinline__ float edge_dist(float a, float b, float c,
-                                           float X, float Y) {
+// Wireframe coverage, in the order of the reference
+// (raster_pallas.py:491-518): the distance of pixel centre (X, Y) to edge
+// (a, b, c) in pixels is d = (a*X + c)*g + (b*Y)*g with the edge's scale
+// g = 1/sqrt(a^2 + b^2 + 1e-30).  g is 1/sqrt in round-to-nearest (not the
+// approximate rsqrtf), which is what 1.0 / torch.sqrt computes on the card,
+// so kernel and plain version agree bit for bit.  g depends on the triangle
+// only: visit_hits computes it once per (warp, hit).  It is +0 where
+// a^2 + b^2 overflows, never negative, and NaN only for a NaN coefficient.
+__device__ __forceinline__ float edge_scale(float a, float b) {
   const float n2 =
       __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)), 1e-30f);
-  const float g = __fdiv_rn(1.f, __fsqrt_rn(n2));
+  return __fdiv_rn(1.f, __fsqrt_rn(n2));
+}
+
+__device__ __forceinline__ float edge_dist(float a, float b, float c, float g,
+                                           float X, float Y) {
   return __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(a, X), c), g),
                    __fmul_rn(__fmul_rn(b, Y), g));
 }
 
-// Wireframe coverage: the five-plane coverage of `covers` and a pixel
-// centre within `thresh` pixels of the nearest of the three edges.
-__device__ __forceinline__ bool covers_wire(const Planes& t, float X,
-                                            float Y, float thresh,
-                                            float* z) {
-  if (!covers(t, X, Y, z)) return false;
-  const float d0 = edge_dist(t.p0.x, t.p0.y, t.p0.z, X, Y);
-  const float d1 = edge_dist(t.p0.w, t.p1.x, t.p1.y, X, Y);
-  const float d2 = edge_dist(t.p1.z, t.p1.w, t.p2.x, X, Y);
-  return fminf(fminf(d0, d1), d2) <= thresh;
-}
-
-// Coverage in either mode, chosen at compile time.
-template <bool kWire>
-__device__ __forceinline__ bool covers_mode(const Planes& t, float X,
-                                            float Y, float thresh,
-                                            float* z) {
-  return kWire ? covers_wire(t, X, Y, thresh, z) : covers(t, X, Y, z);
-}
-
-struct ChunkStage {
-  Planes tri[kChunk];
-  uint32_t mask[kMaskWords];
+// The scales of a triangle's three edges (unused without wireframe).
+struct Scales {
+  float g0, g1, g2;
 };
 
-// Stage chunk `cid`: planes of its 128 rows (row stride `stride` floats,
-// a multiple of 4) and the overlap mask of their bboxes with the tile
-// [tx0, tx1) x [ty0, ty1).  Needs blockDim.x >= 128, a multiple of 32.
-// The caller brackets it with __syncthreads().
-__device__ __forceinline__ void stage_chunk(ChunkStage* s, const float* rows,
-                                            int stride, const float4* bbox,
-                                            int cid, float tx0, float tx1,
-                                            float ty0, float ty1) {
-  const size_t row0 = (size_t)cid * kChunk;
-  for (int j = threadIdx.x; j < kChunk * 3; j += blockDim.x) {
-    const int r = j / 3, q = j - 3 * (j / 3);
-    const float4 v =
-        reinterpret_cast<const float4*>(rows + (row0 + r) * stride)[q];
-    float4* dst = q == 0 ? &s->tri[r].p0 : (q == 1 ? &s->tri[r].p1
-                                                    : &s->tri[r].p2);
-    *dst = v;
-  }
-  if (threadIdx.x < kChunk) {
-    const float4 b = bbox[row0 + threadIdx.x];
-    const bool hit = b.x < tx1 && b.z > tx0 && b.y < ty1 && b.w > ty0;
-    const uint32_t m = __ballot_sync(0xffffffffu, hit);
-    if ((threadIdx.x & 31) == 0) s->mask[threadIdx.x >> 5] = m;
-  }
+__device__ __forceinline__ Scales edge_scales(const Planes& t) {
+  return {edge_scale(t.p0.x, t.p0.y), edge_scale(t.p0.w, t.p1.x),
+          edge_scale(t.p1.z, t.p1.w)};
 }
 
+// The lesser of x and y, NaN if either is NaN: the minimum of jnp.minimum
+// and torch.minimum, which the reference and the plain version take (fminf
+// would skip a NaN operand).
+__device__ __forceinline__ float min_nan(float x, float y) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+}
 
-// ---- bbox-first hit compaction and asynchronous plane staging (K1, K2) ----
+// Coverage in either mode, chosen at compile time: the five-plane coverage
+// of `covers` and, for wireframe, a pixel centre within `thresh` pixels of
+// the nearest of the three edges.  A NaN distance (an infinite plane value
+// times g = 0) covers nothing.
+template <bool kWire>
+__device__ __forceinline__ bool covers_mode(const Planes& t, const Scales& g,
+                                            float X, float Y, float thresh,
+                                            float* z) {
+  if (!covers(t, X, Y, z)) return false;
+  if (!kWire) return true;
+  const float d0 = edge_dist(t.p0.x, t.p0.y, t.p0.z, g.g0, X, Y);
+  const float d1 = edge_dist(t.p0.w, t.p1.x, t.p1.y, g.g1, X, Y);
+  const float d2 = edge_dist(t.p1.z, t.p1.w, t.p2.x, g.g2, X, Y);
+  return min_nan(min_nan(d0, d1), d2) <= thresh;
+}
+
+// ---- bbox-first hit compaction and asynchronous plane staging ----
 
 constexpr int kBatch = 32;   // hits staged per ring slot: one per lane
 constexpr int kStages = 3;   // ring slots: two batches in flight, one in use
@@ -197,6 +187,34 @@ __device__ __forceinline__ bool may_cover(const Planes& t, const Rect& r) {
          !(edge_max(t.p1.z, t.p1.w, t.p2.x, r) < 0.f);
 }
 
+// The least distance edge (a, b, c) with scale g takes at a pixel centre of
+// r, or NaN.  d = S(X) + T(Y) with S = (a*X + c)*g and T = (b*Y)*g.  g is
+// never negative, so each step of S is a monotone function followed by a
+// monotone rounding: where S is not NaN at two X it is ordered as a*X is,
+// and T likewise in Y by the sign of b (an overflow meeting an opposite
+// infinity, or an infinity meeting g = 0, gives NaN, never a value out of
+// order).  If d is a number at the corner opposite to the one the signs of
+// a and b point to, S and T are numbers there, no less elsewhere in r
+// wherever they are numbers, and the rounded sum keeps that order.  Hence a
+// value above the threshold here means the distance is above it or NaN at
+// every pixel of r, bit for bit as `covers_mode` will compute it; a NaN
+// here decides nothing.
+__device__ __forceinline__ float edge_dist_min(float a, float b, float c,
+                                               float g, const Rect& r) {
+  return edge_dist(a, b, c, g, a >= 0.f ? r.x0 : r.x1,
+                   b >= 0.f ? r.y0 : r.y1);
+}
+
+// False only if no pixel centre of r lies within `thresh` of an edge of t
+// as `covers_mode` measures it: all three distances above the threshold
+// or NaN everywhere, and the minimum of such values is never <= thresh.
+__device__ __forceinline__ bool may_pass(const Planes& t, const Scales& g,
+                                         const Rect& r, float thresh) {
+  return !(edge_dist_min(t.p0.x, t.p0.y, t.p0.z, g.g0, r) > thresh &&
+           edge_dist_min(t.p0.w, t.p1.x, t.p1.y, g.g1, r) > thresh &&
+           edge_dist_min(t.p1.z, t.p1.w, t.p2.x, g.g2, r) > thresh);
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
@@ -253,19 +271,22 @@ __device__ __forceinline__ void cull_chunks(HitStage<kCap>* s,
   }
 }
 
-// Evaluate: call visit(planes, row id) for those of the first `hits`
-// entries of s->list that may cover a pixel of the warp's rectangle
-// `rect`, the same sequence in every thread of a warp.  The planes (lanes
-// 0:12 of the (T, 16) setup rows) are fetched in batches of kBatch with
-// cp.async into the ring; batch b + 2 is requested before batch b is
-// evaluated, with one barrier per batch.  `hits` must be uniform over the
-// block; the caller puts a __syncthreads() between the cull and this call,
-// and another before the list or the ring is written again.
-template <int kCap, typename Visit>
+// Evaluate: call visit(planes, row id, scales) for those of the first
+// `hits` entries of s->list that may cover a pixel of the warp's rectangle
+// `rect`, the same sequence in every thread of a warp.  With kWire, hits
+// that cannot come within `thresh` of an edge anywhere in the rectangle
+// are dropped too, and `scales` holds the hit's edge scales, computed by
+// the one lane that tested it (without kWire they are zero and unused).
+// The planes (lanes 0:12 of the (T, 16) setup rows) are fetched in batches
+// of kBatch with cp.async into the ring; batch b + 2 is requested before
+// batch b is evaluated, with one barrier per batch.  `hits` must be uniform
+// over the block; the caller puts a __syncthreads() between the cull and
+// this call, and another before the list or the ring is written again.
+template <bool kWire, int kCap, typename Visit>
 __device__ __forceinline__ void visit_hits(HitStage<kCap>* s,
                                            const float* __restrict__ setup,
                                            int hits, const Rect& rect,
-                                           Visit&& visit) {
+                                           float thresh, Visit&& visit) {
   static_assert(kStages == 3, "the waits below assume a three-slot ring");
   static_assert(kBatch == 32, "one hit per lane in the rectangle test");
   const int lane = threadIdx.x & 31;
@@ -293,14 +314,71 @@ __device__ __forceinline__ void visit_hits(HitStage<kCap>* s,
     const Planes* tri = s->ring[b % kStages];
     const int* id = s->list + b * kBatch;
     const int n = min(kBatch, hits - b * kBatch);
-    uint32_t m =
-        __ballot_sync(0xffffffffu, lane < n && may_cover(tri[lane], rect));
+    bool keep = lane < n && may_cover(tri[lane], rect);
+    Scales g = {0.f, 0.f, 0.f};
+    if constexpr (kWire) {
+      if (keep) {
+        g = edge_scales(tri[lane]);
+        keep = may_pass(tri[lane], g, rect, thresh);
+      }
+    }
+    uint32_t m = __ballot_sync(0xffffffffu, keep);
     while (m) {
       const int j = __ffs(m) - 1;
       m &= m - 1;
-      visit(tri[j], id[j]);
+      if constexpr (kWire) {
+        visit(tri[j], id[j],
+              Scales{__shfl_sync(0xffffffffu, g.g0, j),
+                     __shfl_sync(0xffffffffu, g.g1, j),
+                     __shfl_sync(0xffffffffu, g.g2, j)});
+      } else {
+        visit(tri[j], id[j], g);
+      }
     }
   }
+}
+
+// ---- phase 1 of K2, K2w and K3 ----
+
+constexpr int kRound = 16;  // chunks culled per round
+using TileStage = HitStage<kRound * kChunk>;
+
+// The (z, global triangle id) tournament of one tile for the pixel centre
+// (X, Y) of this thread: over the triangles of chunks ids[0..n) that cover
+// it, the least depth below *best_z and, among equal depths, the least id
+// (the hit list is unordered, so the compare is lexicographic, which is
+// what a strict `<` over ascending ids gives).  The caller sets *best_z to
+// the cleared depth and *best to -1.  Rounds of kRound chunks: cull by
+// bbox, then visit the hits, so the list cannot overflow.  Every thread of
+// the block must call it, with the tile's origin (tx0, ty0) and `rect` from
+// warp_rect.
+template <bool kWire>
+__device__ __forceinline__ void tile_tournament(
+    TileStage* s, const float* __restrict__ setup,
+    const float4* __restrict__ bbox, const int* __restrict__ ids, int n,
+    int tx0, int ty0, int tile_w, int tile_h, float X, float Y,
+    const Rect& rect, float thresh, float* best_z, int* best) {
+  float bz = *best_z;
+  int bi = *best;
+  for (int i0 = 0; i0 < n; i0 += kRound) {
+    __syncthreads();  // the previous round has left the list and the ring
+    if (threadIdx.x == 0) s->count = 0;
+    __syncthreads();
+    cull_chunks(s, bbox, ids + i0, min(kRound, n - i0), (float)tx0,
+                (float)(tx0 + tile_w), (float)ty0, (float)(ty0 + tile_h));
+    __syncthreads();
+    visit_hits<kWire>(s, setup, s->count, rect, thresh,
+                      [&](const Planes& t, int id, const Scales& g) {
+      float z;
+      if (covers_mode<kWire>(t, g, X, Y, thresh, &z) &&
+          (z < bz || (z == bz && id < bi))) {
+        bz = z;
+        bi = id;
+      }
+    });
+  }
+  *best_z = bz;
+  *best = bi;
 }
 
 }  // namespace kani

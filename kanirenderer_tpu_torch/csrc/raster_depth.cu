@@ -78,11 +78,12 @@ __global__ void __launch_bounds__(1024, 1)
                         (float)(ty0 + tile_h));
       __syncthreads();
       float acc = 1.0f;
-      kani::visit_hits(&s, setup, s.count, rect,
-                       [&](const kani::Planes& t, int) {
-                         float z;
-                         if (kani::covers(t, X, Y, &z)) acc = fminf(acc, z);
-                       });
+      kani::visit_hits<false>(
+          &s, setup, s.count, rect, 0.f,
+          [&](const kani::Planes& t, int, const kani::Scales&) {
+            float z;
+            if (kani::covers(t, X, Y, &z)) acc = fminf(acc, z);
+          });
       if (px < width && py < height && acc < 1.0f) {
         atomicMin(reinterpret_cast<int*>(out + (size_t)py * width + px),
                   __float_as_int(acc));

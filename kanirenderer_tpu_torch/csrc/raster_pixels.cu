@@ -5,7 +5,7 @@
 // :1218-1301), both variants: kWire = false is K2, kWire = true is K2w,
 // the wireframe variant (coverage :831-858), which also requires the
 // pixel centre within wire_thresh pixels of an edge (raster_common.cuh
-// covers_wire).  Phase 2 is the same for both.
+// covers_mode).  Phase 2 is the same for both.
 //
 // Phase 1, per pixel: a (z, global triangle id) tournament over the tile's
 // chunks in ascending id with a strict `<`, so the lower id keeps a depth
@@ -23,9 +23,10 @@
 // the bbox hits (6 of a chunk's 128 triangles on average) behind a chain of
 // dependent loads (tile -> chunk ids -> bboxes -> planes); it hides behind
 // other blocks' phase 2 only if enough blocks are resident.  K2w evaluates
-// three more planes and three correctly rounded 1/sqrt per covered
-// evaluation, and runs without back-face culling upstream, so about twice
-// the triangles reach it.
+// three edge distances more per covered evaluation and runs without
+// back-face culling upstream, so 1.75 times the bbox hits reach it.  Its
+// winners are lines, so nearly every warp holds pixels with and without a
+// winner: what the stores of such a warp cost decides K2w's phase 2.
 //
 // Design: one block per tile, one thread per pixel, the tournament state in
 // two registers.  Phase 1 culls by bbox first: the warps test the bboxes of
@@ -34,12 +35,19 @@
 // rows (not from the 304-byte records, where a 48-byte piece straddles
 // sectors), with cp.async into a three-slot ring (raster_common.cuh), and
 // each warp drops the hits whose edges exclude its 8 x 4 patch of the tile
-// (an exact test, raster_common.cuh edge_max).  The
-// hit list is unordered, so the tournament compares (z, id)
-// lexicographically, which is what a strict `<` over ascending ids gives.
+// (an exact test, raster_common.cuh edge_max); K2w's warps also drop the
+// hits whose three edges all stay farther than the threshold from the patch
+// (exact too, edge_dist_min) and get each survivor's edge scales
+// 1/sqrt(a^2 + b^2 + 1e-30) from the one lane that tested it, instead of
+// three square roots and divisions per pixel.  The loop is
+// raster_common.cuh tile_tournament, shared with K3.
 // Phase 2 consumes the record piecewise (edge rows, then four varyings at a
 // time) under a register limit that keeps six blocks of 256 threads on an
 // SM; held whole, the record's 76 lanes cost 80 registers and leave three.
+// All lanes of a warp that holds a winner go through the same 24 stores,
+// the lanes without one storing the defaults, so that a store fills whole
+// sectors; with a path of its own for those lanes K2w took half as long
+// again.
 // The TPU kernel's winner-run compaction and lane-LUT record resolve
 // (:938-1121) exist because a TPU core cannot gather per pixel
 // from HBM; here phase 2 is a plain global load.  Evaluation order as in
@@ -60,12 +68,11 @@ __device__ __forceinline__ float plane_abc(float a, float b, float c,
   return __fadd_rn(__fadd_rn(__fmul_rn(a, X), __fmul_rn(b, Y)), c);
 }
 
-constexpr int kRound = 16;  // chunks culled per round of phase 1
-using Stage = kani::HitStage<kRound * kani::kChunk>;
-
 // kMaxThreads and kMinBlocks set the register limit: blocks of up to 256
-// threads run six to an SM (40 registers; four for K2w, whose edge
-// distances spill below 64), larger blocks take what they need.
+// threads run kBlocks to an SM (six: 40 registers; five: 48, where K2w
+// stops spilling), larger blocks take what they need.
+constexpr int kBlocksK2 = 6, kBlocksK2w = 5;
+
 template <bool kWire, int kMaxThreads, int kMinBlocks>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     raster_pixels_kernel(
@@ -75,7 +82,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     float* __restrict__ z_out, float* __restrict__ vary_out,
     int* __restrict__ int_out, int width, int height, int tiles_x, int tile_w,
     int tile_h, float wire_thresh) {
-  __shared__ Stage s;
+  __shared__ kani::TileStage s;
   const int tile = blockIdx.x;
   const int tx0 = (tile % tiles_x) * tile_w;
   const int ty0 = (tile / tiles_x) * tile_h;
@@ -88,35 +95,26 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
   const kani::Rect rect = kani::warp_rect(px, py);
 
   // ---- phase 1: visibility tournament over the bbox hits ----
-  const int first = tile_start[tile];
-  const int n = tile_count[tile];
   float best_z = 1.0f;
   int best = -1;
-  for (int i0 = 0; i0 < n; i0 += kRound) {
-    __syncthreads();  // the previous round has left the list and the ring
-    if (threadIdx.x == 0) s.count = 0;
-    __syncthreads();
-    kani::cull_chunks(&s, bbox, chunk + first + i0, min(kRound, n - i0),
-                      (float)tx0, (float)(tx0 + tile_w), (float)ty0,
-                      (float)(ty0 + tile_h));
-    __syncthreads();
-    kani::visit_hits(&s, setup, s.count, rect,
-                     [&](const kani::Planes& t, int id) {
-      float z;
-      if (kani::covers_mode<kWire>(t, X, Y, wire_thresh, &z) &&
-          (z < best_z || (z == best_z && id < best))) {
-        best_z = z;
-        best = id;
-      }
-    });
-  }
-  if (px >= width || py >= height) return;
+  kani::tile_tournament<kWire>(&s, setup, bbox, chunk + tile_start[tile],
+                               tile_count[tile], tx0, ty0, tile_w, tile_h, X,
+                               Y, rect, wire_thresh, &best_z, &best);
 
   // ---- phase 2: interpolate the winner's record ----
+  // A warp none of whose pixels has a winner writes the defaults.  In any
+  // other warp every lane takes part in every store, so that each store
+  // fills whole 32-byte sectors: a lane with no winner loads nothing and
+  // stores the defaults.  (Two paths within a warp would write every sector
+  // of the 23 planes twice, half filled each time.)
+  const bool inside = px < width && py < height;
+  const bool won = inside && best >= 0;
+  const bool any_won = __any_sync(0xffffffffu, won);
+  if (!inside) return;
   const size_t hw = (size_t)width * height;
   const size_t p = (size_t)py * width + px;
   z_out[p] = best_z;
-  if (best < 0) {
+  if (!any_won) {
     for (int c = 0; c < kUsed; ++c) vary_out[c * hw + p] = 0.f;
     int_out[0 * hw + p] = 0;   // mat_id
     int_out[1 * hw + p] = 1;   // tex_w
@@ -126,13 +124,16 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     int_out[5 * hw + p] = -1;  // tid
     return;
   }
-  // The record as 19 float4: lanes 4q .. 4q+3 in rec[q].
-  const float4* rec =
-      reinterpret_cast<const float4*>(records + (size_t)best * kRecLanes);
+  // The record as 19 float4: lanes 4q .. 4q+3 in rec(q).
+  const float4* record = reinterpret_cast<const float4*>(
+      records + (size_t)max(best, 0) * kRecLanes);
+  auto rec = [&](int q) {
+    return won ? record[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
   float w1, w2;
   {
-    const float4 e0 = rec[0], e1 = rec[1], e2 = rec[2];  // lanes 0:12
-    const float4 ls = rec[kLsum0 / 4];                   // lanes 72:76
+    const float4 e0 = rec(0), e1 = rec(1), e2 = rec(2);  // lanes 0:12
+    const float4 ls = rec(kLsum0 / 4);                   // lanes 72:76
     static_assert(kLsum0 % 4 == 1, "lsum row sits in lanes 73:76");
     const float l1 = plane_abc(e0.w, e1.x, e1.y, X, Y);
     const float l2 = plane_abc(e1.z, e1.w, e2.x, X, Y);
@@ -147,13 +148,13 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
   static_assert(kRec0 == 16 && kUsed == 17, "the lane offsets below");
 #pragma unroll
   for (int g = 0; g < 5; ++g) {
-    const float4 a = rec[4 + g];
-    const float4 b0 = rec[8 + g], c0 = rec[12 + g];
+    const float4 a = rec(4 + g);
+    const float4 b0 = rec(8 + g), c0 = rec(12 + g);
     const float v0[4] = {a.x, a.y, a.z, a.w};
     float d1[4] = {b0.y, b0.z, b0.w, 0.f};
     float d2[4] = {c0.z, c0.w, 0.f, 0.f};
     if (g < 4) {
-      const float4 b1 = rec[9 + g], c1 = rec[13 + g];
+      const float4 b1 = rec(9 + g), c1 = rec(13 + g);
       d1[3] = b1.x;
       d2[2] = c1.x;
       d2[3] = c1.y;
@@ -162,18 +163,19 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     for (int k = 0; k < 4; ++k) {
       const int c = 4 * g + k;
       if (c < kUsed) {
-        vary_out[c * hw + p] = __fadd_rn(
-            __fadd_rn(v0[k], __fmul_rn(d1[k], w1)), __fmul_rn(d2[k], w2));
+        const float v = __fadd_rn(__fadd_rn(v0[k], __fmul_rn(d1[k], w1)),
+                                  __fmul_rn(d2[k], w2));
+        vary_out[c * hw + p] = won ? v : 0.f;
       }
     }
   }
   static_assert(kPar0 == 67, "the material lanes below");
-  const float4 m0 = rec[16], m1 = rec[17], m2 = rec[18];  // lanes 64:76
-  int_out[0 * hw + p] = (int)m0.w;                          // lane 67
-  int_out[1 * hw + p] = (int)m1.x;
-  int_out[2 * hw + p] = (int)m1.y;
-  int_out[3 * hw + p] = (int)m1.z * 65536 + (int)m1.w;
-  int_out[4 * hw + p] = (int)m2.x;                          // lane 72
+  const float4 m0 = rec(16), m1 = rec(17), m2 = rec(18);  // lanes 64:76
+  int_out[0 * hw + p] = won ? (int)m0.w : 0;               // lane 67
+  int_out[1 * hw + p] = won ? (int)m1.x : 1;
+  int_out[2 * hw + p] = won ? (int)m1.y : 1;
+  int_out[3 * hw + p] = won ? (int)m1.z * 65536 + (int)m1.w : 0;
+  int_out[4 * hw + p] = won ? (int)m2.x : 1;               // lane 72
   int_out[5 * hw + p] = best;
 }
 
@@ -186,7 +188,8 @@ int launch(const float* records, const float* setup, const float* bbox,
   if (num_tiles > 0) {
     const int threads = tile_w * tile_h;
     auto kernel = threads <= 256
-                      ? raster_pixels_kernel<kWire, 256, kWire ? 4 : 6>
+                      ? raster_pixels_kernel<kWire, 256,
+                                             kWire ? kBlocksK2w : kBlocksK2>
                       : raster_pixels_kernel<kWire, 1024, 1>;
     kernel<<<num_tiles, threads, 0, (cudaStream_t)stream>>>(
         records, setup, reinterpret_cast<const float4*>(bbox), tile_start,

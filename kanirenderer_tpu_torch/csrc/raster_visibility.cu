@@ -10,62 +10,54 @@
 // plane values, and lsum = (l0 + l1) + l2, 0 -> 1e-30 (:557-566).
 // Background: tri = -1, z = 1, bary = 0 (:432-436).
 //
-// What bounds it on this card: as K2's phase 1 (raster_pixels.cu) — chunk
-// staging latency on sparse tiles, FP32 plane evaluation on dense ones;
-// its output is 16 bytes per pixel (33 MB at 1920x1080).
+// What bounds it on this card: FP32 plane evaluation over the bbox hits
+// behind a chain of dependent loads (tile -> chunk ids -> bboxes ->
+// planes), as K2's phase 1 (raster_pixels.cu); its output is 16 bytes per
+// pixel (33 MB at 1920x1080), a tenth of the time.
 //
-// Design: K2's phase 1 unchanged, one block per 16x16 tile, one thread per
-// pixel, planes staged in shared memory with a ballot mask of the
-// triangles whose bbox meets the tile.  The tournament keeps only (z, id)
-// in registers; the winner's three edge planes are evaluated once more at
-// the end from its setup row, which gives the same bits as keeping them
-// from the tournament and spares three live registers per pixel.
+// Design: phase 1 is K2's, the same function (raster_common.cuh
+// tile_tournament): one block per tile, one thread per pixel in 8 x 4
+// patches per warp, bbox-first hit compaction, the hits' planes through the
+// cp.async ring, the exact per-warp rejections, and for wireframe the edge
+// scales once per (warp, hit).  The tournament keeps only (z, id) in
+// registers; the winner's three edge planes are evaluated once more at
+// the end from its setup row (48 bytes per covered pixel, mostly from L2),
+// which gives the same bits as keeping them from the tournament and spares
+// three live registers per pixel.
 
 #include "raster_common.cuh"
 
 namespace {
 
-template <bool kWire>
-__global__ void raster_visibility_kernel(
+// kMaxThreads and kMinBlocks set the register limit as in raster_pixels.cu:
+// blocks of up to 256 threads run six to an SM, with or without wireframe.
+constexpr int kBlocks = 6;
+
+template <bool kWire, int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+    raster_visibility_kernel(
     const float* __restrict__ setup, const float4* __restrict__ bbox,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
     const int* __restrict__ chunk, int* __restrict__ tri_out,
     float* __restrict__ z_out, float2* __restrict__ bary_out, int width,
     int height, int tiles_x, int tile_w, int tile_h, float wire_thresh) {
-  __shared__ kani::ChunkStage s;
+  __shared__ kani::TileStage s;
   const int tile = blockIdx.x;
   const int tx0 = (tile % tiles_x) * tile_w;
   const int ty0 = (tile / tiles_x) * tile_h;
-  const int px = tx0 + threadIdx.x % tile_w;
-  const int py = ty0 + threadIdx.x / tile_w;
+  int lx, ly;
+  kani::tile_pixel(tile_w, tile_h, &lx, &ly);
+  const int px = tx0 + lx;
+  const int py = ty0 + ly;
   const float X = (float)px + 0.5f;
   const float Y = (float)py + 0.5f;
+  const kani::Rect rect = kani::warp_rect(px, py);
 
-  const int first = tile_start[tile];
-  const int n = tile_count[tile];
   float best_z = 1.0f;
   int best = -1;
-  for (int i = 0; i < n; ++i) {
-    const int cid = chunk[first + i];
-    __syncthreads();
-    kani::stage_chunk(&s, setup, 16, bbox, cid, (float)tx0,
-                      (float)(tx0 + tile_w), (float)ty0,
-                      (float)(ty0 + tile_h));
-    __syncthreads();
-    for (int w = 0; w < kani::kMaskWords; ++w) {
-      uint32_t m = s.mask[w];
-      while (m) {
-        const int r = w * 32 + __ffs(m) - 1;
-        m &= m - 1;
-        float z;
-        if (kani::covers_mode<kWire>(s.tri[r], X, Y, wire_thresh, &z) &&
-            z < best_z) {
-          best_z = z;
-          best = cid * kani::kChunk + r;
-        }
-      }
-    }
-  }
+  kani::tile_tournament<kWire>(&s, setup, bbox, chunk + tile_start[tile],
+                               tile_count[tile], tx0, ty0, tile_w, tile_h, X,
+                               Y, rect, wire_thresh, &best_z, &best);
   if (px >= width || py >= height) return;
 
   const size_t p = (size_t)py * width + px;
@@ -75,10 +67,11 @@ __global__ void raster_visibility_kernel(
     bary_out[p] = make_float2(0.f, 0.f);
     return;
   }
-  const float* r = setup + (size_t)best * 16;
-  const float l0 = kani::plane(r[0], r[1], r[2], X, Y);
-  const float l1 = kani::plane(r[3], r[4], r[5], X, Y);
-  const float l2 = kani::plane(r[6], r[7], r[8], X, Y);
+  const float4* r = reinterpret_cast<const float4*>(setup + (size_t)best * 16);
+  const float4 p0 = r[0], p1 = r[1], p2 = r[2];  // lanes 0:12
+  const float l0 = kani::plane(p0.x, p0.y, p0.z, X, Y);
+  const float l1 = kani::plane(p0.w, p1.x, p1.y, X, Y);
+  const float l2 = kani::plane(p1.z, p1.w, p2.x, X, Y);
   const float lsum = __fadd_rn(__fadd_rn(l0, l1), l2);
   const float lsafe = lsum != 0.f ? lsum : 1e-30f;
   bary_out[p] = make_float2(__fdiv_rn(l1, lsafe), __fdiv_rn(l2, lsafe));
@@ -91,8 +84,11 @@ int launch(const float* setup, const float* bbox, const int* tile_start,
            int num_tiles, int tile_w, int tile_h, float wire_thresh,
            void* stream) {
   if (num_tiles > 0) {
-    raster_visibility_kernel<kWire><<<num_tiles, tile_w * tile_h, 0,
-                                      (cudaStream_t)stream>>>(
+    const int threads = tile_w * tile_h;
+    auto kernel = threads <= 256
+                      ? raster_visibility_kernel<kWire, 256, kBlocks>
+                      : raster_visibility_kernel<kWire, 1024, 1>;
+    kernel<<<num_tiles, threads, 0, (cudaStream_t)stream>>>(
         setup, reinterpret_cast<const float4*>(bbox), tile_start, tile_count,
         chunk, tri_out, z_out, reinterpret_cast<float2*>(bary_out), width,
         height, tiles_x, tile_w, tile_h, wire_thresh);

@@ -1,19 +1,24 @@
-"""Adversarial inputs for the tile raster kernels K1 and K2.
+"""Adversarial inputs for the tile raster kernels K1, K2, K2w and K3.
 
 Small synthetic triangle sets that drive the paths a real frame seldom
 reaches: a hit list that overflows its shared-memory room (more bbox hits
 in one tile than the list holds, so the kernel evaluates and refills), a
 tile at its chunk cap with a counted overflow, tiles with no chunk, equal
 depths across chunks (the lower triangle id must win), a raster that is no
-multiple of the tile, and NaN planes.  ``chip_smoke.py`` and
-``tests/test_torch_cuda.py`` hold the kernels against their plain versions
-on them, ``tests/test_torch_raster.py`` the plain versions against the JAX
-package's brute-force rasters.
+multiple of the tile, NaN planes, wireframe interiors (triangles that
+cover whole tiles, whole 8×4 patches and single pixels with no edge
+within the threshold), and infinite and float32-overflowing plane
+coefficients.  ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
+kernels against their plain versions on them,
+``tests/test_torch_raster.py`` and ``tests/test_torch_visibility.py`` the
+plain versions against the JAX package's brute-force rasters.
 
-Every triangle is a band: it covers x ∈ [x0, x1), y ≥ 4 at a constant
-depth.  All plane coefficients are small integers or multiples of 2⁻¹², so
-every evaluation order gives the same bits and any two correct rasters
-agree exactly.
+The triangles of the first two cases are bands: one covers x ∈ [x0, x1),
+y ≥ 4 at a constant depth.  All plane coefficients are small integers,
+multiples of 2⁻¹² or powers of two, so every evaluation order gives the
+same bits and any two correct rasters agree exactly; with wireframe
+coverage they do so at a threshold that no edge distance comes near
+(``WIRE_THRESH``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,11 @@ from kanirenderer_tpu_torch.ops.vertex import NS
 Tensor = torch.Tensor
 
 TILE = 16
+# The wireframe threshold for the cases, in pixels.  Plane values at pixel
+# centres are multiples of 1/2 here, and no edge of the cases has a length
+# that brings a multiple of 1/2 divided by it within 1e-4 of this value
+# (the float32 distances are within 1e-5 of the true ones).
+WIRE_THRESH = 0.75
 
 
 class RasterCase(NamedTuple):
@@ -46,36 +56,54 @@ class RasterCase(NamedTuple):
     kept: Tensor     # (T,) bool: triangles of chunks the binning kept
 
 
-def _case(name: str, x0, x1, z, nan_rows, width: int, height: int,
-          cap: int, device) -> RasterCase:
-    """Bands x ∈ [x0[i], x1[i]), y ≥ 4 at depth z[i]; ``nan_rows`` get a
-    NaN edge or depth coefficient and keep their bbox."""
-    T = len(x0)
+def _finish(name: str, setup: np.ndarray, bbox: np.ndarray, width: int,
+            height: int, cap: int, device) -> RasterCase:
+    """Records for the (T, 16) setup rows (random varyings and material
+    lanes, made from a seed) and the bins of the bboxes."""
+    T = setup.shape[0]
     assert T % CHUNK_SIZE == 0
+    setup, bbox = setup.astype(np.float32), bbox.astype(np.float32)
+    rng = np.random.RandomState(T + width)
+    records = np.zeros((T, FAT_LANES), np.float32)
+    records[:, :NS] = setup
+    records[:, REC0:PAR0] = rng.standard_normal((T, PAR0 - REC0))
+    records[:, PAR0:LSUM0] = rng.randint(0, 30000, (T, LSUM0 - PAR0))
+    with np.errstate(invalid="ignore"):                # inf − inf
+        records[:, LSUM0:] = setup[:, 0:3] + setup[:, 3:6] + setup[:, 6:9]
+    setup_t, bbox_t, records_t = (torch.from_numpy(a).to(device)
+                                  for a in (setup, bbox, records))
+    bins = bin_tiles(bbox_t, width, height, TILE, TILE, cap)
+    # Every triangle of a case with a cap meets the same tiles, so a chunk
+    # is kept everywhere or nowhere: the first ``cap`` chunks are kept.
+    kept = torch.arange(T, device=device) < cap * CHUNK_SIZE
+    return RasterCase(name, setup_t, bbox_t, records_t, bins, width, height,
+                      kept)
+
+
+def _band_rows(x0, x1, z, height: int):
+    """Setup rows and bboxes of bands x ∈ [x0[i], x1[i]), y ≥ 4 at depth
+    z[i]."""
+    T = len(x0)
     setup = np.zeros((T, NS), np.float32)
     setup[:, 0], setup[:, 2] = 1.0, -x0           # x − x0 ≥ 0
     setup[:, 3], setup[:, 5] = -1.0, x1           # x1 − x ≥ 0
     setup[:, 7], setup[:, 8] = 1.0, -4.0          # y − 4 ≥ 0
     setup[:, 11] = z
     setup[:, 15] = 1.0
-    for k, i in enumerate(nan_rows):              # edge a, edge c, depth c
-        setup[i, (3, 8, 11)[k % 3]] = np.nan
     bbox = np.stack([x0, np.full(T, 4.0), x1, np.full(T, float(height))],
                     1).astype(np.float32)
-    rng = np.random.RandomState(T + width)
-    records = np.zeros((T, FAT_LANES), np.float32)
-    records[:, :NS] = setup
-    records[:, REC0:PAR0] = rng.standard_normal((T, PAR0 - REC0))
-    records[:, PAR0:LSUM0] = rng.randint(0, 30000, (T, LSUM0 - PAR0))
-    records[:, LSUM0:] = setup[:, 0:3] + setup[:, 3:6] + setup[:, 6:9]
-    setup_t, bbox_t, records_t = (torch.from_numpy(a).to(device)
-                                  for a in (setup, bbox, records))
-    bins = bin_tiles(bbox_t, width, height, TILE, TILE, cap)
-    # Every band of a case with a cap meets the same tiles, so a chunk is
-    # kept everywhere or nowhere: the first ``cap`` chunks are kept.
-    kept = torch.arange(T, device=device) < cap * CHUNK_SIZE
-    return RasterCase(name, setup_t, bbox_t, records_t, bins, width, height,
-                      kept)
+    return setup, bbox
+
+
+def _case(name: str, x0, x1, z, nan_rows, width: int, height: int,
+          cap: int, device) -> RasterCase:
+    """Bands x ∈ [x0[i], x1[i]), y ≥ 4 at depth z[i]; ``nan_rows`` get a
+    NaN edge or depth coefficient and keep their bbox."""
+    setup, bbox = _band_rows(np.asarray(x0, np.float64),
+                             np.asarray(x1, np.float64), z, height)
+    for k, i in enumerate(nan_rows):              # edge a, edge c, depth c
+        setup[i, (3, 8, 11)[k % 3]] = np.nan
+    return _finish(name, setup, bbox, width, height, cap, device)
 
 
 def list_overflow_case(width: int, height: int, device,
@@ -111,10 +139,112 @@ def chunk_cap_case(cap: int, device, extra: int = 10,
                  "in each", x0, x1, z, i[5::211], dim, dim, cap, device)
 
 
+def _triangle_row(v, z: float):
+    """Setup row and bbox of the triangle with integer pixel vertices
+    ``v`` (3 × (x, y)) at constant depth ``z``: edge i is the plane through
+    the two vertices other than i, positive inside, with integer
+    coefficients (not normalised)."""
+    v = np.asarray(v, np.float64)
+    row = np.zeros(NS)
+    for i in range(3):
+        (xa, ya), (xb, yb) = v[(i + 1) % 3], v[(i + 2) % 3]
+        a, b, c = ya - yb, xb - xa, xa * yb - xb * ya
+        if a * v[i, 0] + b * v[i, 1] + c < 0:
+            a, b, c = -a, -b, -c
+        row[3 * i:3 * i + 3] = a, b, c
+    row[11], row[15] = z, 1.0
+    return row, np.array([v[:, 0].min(), v[:, 1].min(), v[:, 0].max(),
+                          v[:, 1].max()])
+
+
+def _pad_rows(rows, boxes, width: int, height: int):
+    """Stack rows and bboxes and pad to a whole chunk with invalid
+    triangles (e0.c = −1, empty bbox)."""
+    T = -(-len(rows) // CHUNK_SIZE) * CHUNK_SIZE
+    setup = np.zeros((T, NS), np.float32)
+    setup[:, 2] = -1.0
+    bbox = np.tile(np.array([width, height, 0, 0], np.float32), (T, 1))
+    setup[:len(rows)] = np.stack(rows)
+    bbox[:len(rows)] = np.stack(boxes)
+    return setup, bbox
+
+
+def wire_interior_case(device, width: int = 120, height: int = 72,
+                       scale: int = 1) -> RasterCase:
+    """Wireframe interiors: three triangles that span most of the raster,
+    whose insides hold whole tiles and whole 8×4 patches farther than the
+    threshold from every edge; slivers one or two pixels thin, whose every
+    pixel is near an edge; and small triangles on a grid in between, so
+    that single pixels of a patch pass.  The raster is ragged (120×72 on
+    16×16 tiles).  ``scale`` multiplies every vertex: 16 spreads the same
+    75 triangles over a 1920×1080 raster."""
+    rows, boxes = [], []
+
+    def add(v, z):
+        row, box = _triangle_row(np.asarray(v) * scale, z)
+        rows.append(row)
+        boxes.append(box)
+
+    add([(2, 2), (118, 8), (10, 70)], 0.5)       # spans 8 × 5 tiles
+    add([(117, 70), (118, 12), (14, 71)], 0.625)
+    add([(0, 0), (120, 0), (60, 72)], 0.75)      # cut by the raster's edge
+    for k in range(6):                            # slivers across the tiles
+        add([(3 + 7 * k, 5 * k + 3), (110 - 3 * k, 9 * k + 6),
+             (3 + 7 * k, 5 * k + 4 + k % 2)], 0.25 + k / 64.0)
+        add([(20 * k + 4, 2), (20 * k + 6, 70), (20 * k + 5 + k % 2, 2)],
+            0.375 + k / 64.0)
+    for k in range(60):                           # small ones, 12 × 12 grid
+        x, y, e = 5 + 12 * (k % 10), 4 + 12 * (k // 10), 1 + k % 4
+        add([(x, y), (x + e, y + k % 3), (x + k % 2, y + e)],
+            0.125 + (k % 7) / 128.0)
+    setup, bbox = _pad_rows(rows, boxes, width, height)
+    return _finish("wireframe interiors: large triangles, slivers, small "
+                   "triangles", setup, bbox, width, height, 640, device)
+
+
+def nonfinite_case(device, width: int = 48, height: int = 40) -> RasterCase:
+    """Bands with infinite and float32-overflowing coefficients in front of
+    finite ones: a² + b² overflowing to g = 0 with finite plane values (the
+    whole band is within the threshold), a·X overflowing from some column
+    on (an infinite plane value, a NaN edge distance there: not covered
+    with wireframe), infinite a or c of either sign, an overflowing b·Y,
+    an overflowing depth plane, and inf − inf = NaN in an edge.  Only a
+    row's first edge is ever infinite, and the barycentrics are those of
+    the other two over the sum, so every output is a number."""
+    big, inf = 2.0 ** 67, np.inf
+    n = 12
+    x0 = 2.0 + 3.0 * np.arange(n)
+    setup, bbox = _band_rows(x0, x0 + 9.0, 0.25 + np.arange(n) / 64.0,
+                             height)
+    back, bbox_back = _band_rows(np.array([1.0, 20.0]),
+                                 np.array([30.0, 47.0]),
+                                 np.array([0.75, 0.875]), height)
+    e = setup[:, 0:9]                              # view: three edge rows
+    e[0, 0], e[0, 2] = big, -big * x0[0]           # g = 0, finite values
+    e[1, 0], e[1, 2] = 2.0 ** 125, -2.0 ** 125 * x0[1]  # a·X = inf, X ≥ 8
+    e[2, 0] = inf                                  # l0 = inf, d0 = NaN
+    e[3, 2] = inf                                  # l0 = inf, d0 = inf
+    e[4, 2] = -inf                                 # covers nothing
+    e[5, 3] = -inf                                 # covers nothing
+    e[6, 0:3] = 0.0, 2.0 ** 124, -2.0 ** 126       # b·Y = inf for Y ≥ 16
+    e[6, 6:9] = 1.0, 0.0, -x0[6]                   # (the y edge comes first)
+    e[7, 6:9] = big, big, -big * (x0[7] + 13.0)    # diagonal with g = 0
+    e[8, 0], e[8, 2] = inf, -inf                   # inf − inf: NaN edge
+    setup[9, 9], setup[9, 11] = 2.0 ** 125, 0.0    # depth overflows
+    e[10, 3], e[10, 5] = -big, big * (x0[10] + 9.0)  # g = 0 on the far edge
+    setup = np.concatenate([setup, back])
+    bbox = np.concatenate([bbox, bbox_back])
+    setup, bbox = _pad_rows(list(setup), list(bbox), width, height)
+    return _finish("infinite and overflowing plane coefficients", setup,
+                   bbox, width, height, 640, device)
+
+
 def adversarial_cases(device, cap: int = 640, square: bool = False):
-    """The cases for K2 (104×40 and 32×32) or, with ``square``, for K1
-    (104×104 and 32×32).
+    """The cases for K2, K2w and K3 (104×40, 32×32, 120×72, 48×40) or,
+    with ``square``, for K1 (104×104, 32×32, 120×120, 48×48).
     ``cap`` sizes the capped tile: 640, the frame's cap, on the card; a
     few chunks where the plain version runs on the CPU."""
     return [list_overflow_case(104, 104 if square else 40, device),
-            chunk_cap_case(cap, device)]
+            chunk_cap_case(cap, device),
+            wire_interior_case(device, height=120 if square else 72),
+            nonfinite_case(device, height=48 if square else 40)]

@@ -12,8 +12,8 @@ Counterpart of ``kanirenderer_tpu/ops/raster_pallas.py``:
   (triangle id, depth, barycentrics), the reference's ``_raster_kernel``
   with depth_only=False, with or without wireframe coverage.
 
-All take binned inputs (ops/binning.bin_tiles).  K1 and K2 cull by bbox
-first and fetch only the hits' planes from the (T, 16) setup rows
+All take binned inputs (ops/binning.bin_tiles), cull by bbox first and
+fetch only the hits' planes from the (T, 16) setup rows
 (csrc/raster_common.cuh); K2 therefore takes the setup rows beside its
 records, whose lanes 0:12 hold the same values.  On a CUDA tensor a
 wrapper launches its kernel and counts the launch in ``launch_counts``; on
@@ -24,7 +24,9 @@ as the oracle the kernels are checked against on the card.
 Wireframe coverage keeps a pixel when it passes the five-plane coverage
 and its centre lies within ``wire_thresh`` pixels of the nearest edge,
 d = (a·X + c)·g + (b·Y)·g with g = 1/sqrt(a² + b² + 1e-30), the order of
-the reference kernel (raster_pallas.py:491-518).
+the reference kernel (raster_pallas.py:491-518); a NaN distance covers
+nothing (the minimum over the edges is ``torch.minimum``'s, as the
+reference's is ``jnp.minimum``'s).
 
 The kernels are built at first use with ``nvcc`` for sm_90a, one compiler
 process per source started together, into one shared library with a plain
@@ -311,6 +313,19 @@ def _pairs(bins: ChunkBins):
     return tile, chunk
 
 
+def _bbox_hits(bbox: Tensor, tile: Tensor, chunk: Tensor, bins: ChunkBins):
+    """(triangle ids (P, 128), hit (P, 128)): the triangles of each pair's
+    chunk and whether their bbox meets the pair's tile, the kernels' cull."""
+    tw, th = bins.tile_w, bins.tile_h
+    tri = chunk[:, None] * CHUNK_SIZE \
+        + torch.arange(CHUNK_SIZE, device=bbox.device)
+    b = bbox[tri]
+    tx0 = (tile % bins.tiles_x * tw).to(torch.float32)[:, None]
+    ty0 = (tile // bins.tiles_x * th).to(torch.float32)[:, None]
+    return tri, (b[..., 0] < tx0 + tw) & (b[..., 2] > tx0) \
+        & (b[..., 1] < ty0 + th) & (b[..., 3] > ty0)
+
+
 def _eval_pairs(rows: Tensor, bbox: Tensor, tile: Tensor, chunk: Tensor,
                 bins: ChunkBins, width: int, height: int,
                 wire_thresh: float | None = None):
@@ -325,13 +340,8 @@ def _eval_pairs(rows: Tensor, bbox: Tensor, tile: Tensor, chunk: Tensor,
     y = (tile // bins.tiles_x * th)[:, None] + lpix // tw
     X = (x.to(torch.float32) + 0.5)[:, None, :]
     Y = (y.to(torch.float32) + 0.5)[:, None, :]
-    tri = chunk[:, None] * CHUNK_SIZE + torch.arange(CHUNK_SIZE, device=dev)
+    tri, hit = _bbox_hits(bbox, tile, chunk, bins)
     r = rows[:, :12][tri]                                 # (P, 128, 12)
-    b = bbox[tri]
-    tx0 = (tile % bins.tiles_x * tw).to(torch.float32)[:, None]
-    ty0 = (tile // bins.tiles_x * th).to(torch.float32)[:, None]
-    hit = (b[..., 0] < tx0 + tw) & (b[..., 2] > tx0) \
-        & (b[..., 1] < ty0 + th) & (b[..., 3] > ty0)
 
     def plane(k):  # (a·X + c) + b·Y, the kernels' order
         return (r[..., k, None] * X + r[..., k + 2, None]) \

@@ -7,9 +7,9 @@ JAX, so run them without the suite's conftest (which imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: kernel and plain version evaluate every plane in the same
-order without fused multiply-adds, so depth maps, coverage, winners and
-interpolated outputs must be bit-equal (``torch.equal``); only K3's
-checks on the frame geometry keep the reference's raster parity bounds.
+order without fused multiply-adds, so depth maps, coverage, winners,
+barycentrics and interpolated outputs must be bit-equal (``torch.equal``)
+for every kernel.
 """
 
 import numpy as np
@@ -184,27 +184,33 @@ def test_kernels_match_plain_on_random_triangles(geometry, seed, tile_w,
                                                 128))
 
 
-@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
 def test_kernels_match_plain_on_adversarial_cases(geometry, which):
     """Hit-list overflow, tiles at the 640-chunk cap with counted overflow,
-    empty tiles, depth ties across chunks, a ragged raster and NaN planes
-    (ops/raster_cases.py): K2, K2w and K1 against their plain versions,
-    bit-equal."""
+    empty tiles, depth ties across chunks, a ragged raster, NaN planes,
+    wireframe interiors and infinite or overflowing plane coefficients
+    (ops/raster_cases.py): K2, K2w, K3 with and without wireframe and K1
+    against their plain versions, bit-equal, at a threshold that an edge
+    distance of the band cases equals (1.5) and at the cases' own."""
     dev = geometry[0].records.device
     case = raster_cases.adversarial_cases(dev)[which]
-    assert int(case.bins.overflow) == (0, 20)[which]
-    assert int(case.bins.count.max()) == (24, 640)[which]
-    for wire in (False, True):
-        k = rc.rasterize_pixels(case.records, case.setup, case.bbox,
-                                case.bins, case.width, case.height, wire, 1.5)
-        p = rc.rasterize_pixels_plain(case.records, case.setup, case.bbox,
-                                      case.bins, case.width, case.height,
-                                      wire, 1.5)
+    assert int(case.bins.overflow) == (0, 20, 0, 0)[which]
+    assert int(case.bins.count.max()) == (24, 640, 1, 1)[which]
+    for wire, thresh in ((False, 0.7), (True, 1.5),
+                         (True, raster_cases.WIRE_THRESH)):
+        args = (case.setup, case.bbox, case.bins, case.width, case.height,
+                wire, thresh)
+        k = rc.rasterize_pixels(case.records, *args)
+        p = rc.rasterize_pixels_plain(case.records, *args)
         torch.cuda.synchronize()
         assert 0.05 < k.mask.float().mean().item() < 1.0
         _assert_pixels_equal(k, p)
         tid = k.tid[k.mask].to(torch.int64)
         assert case.kept[tid].all() and not case.setup[tid].isnan().any()
+        k3, p3 = rc.rasterize(*args), rc.rasterize_plain(*args)
+        for f, a, b in zip(k3._fields, k3, p3):
+            assert torch.equal(a, b), f
+        assert torch.equal(k3.tri, k.tid)
     sq = raster_cases.adversarial_cases(dev, square=True)[which]
     k1 = rc.rasterize_depth(sq.setup, sq.bbox, sq.bins, sq.width)
     p1 = rc.rasterize_depth_plain(sq.setup, sq.bbox, sq.bins, sq.width)

@@ -317,6 +317,39 @@ def test_plain_rasters_match_oracle_on_adversarial_cases(which):
     assert (depth < 1.0).any() and (depth == 1.0).any()
 
 
+@pytest.mark.parametrize("make", [raster_cases.wire_interior_case,
+                                  raster_cases.nonfinite_case])
+def test_plain_rasters_match_oracle_on_interior_and_nonfinite_cases(make):
+    """Triangles spanning many tiles with slivers and small triangles
+    between them, and infinite or float32-overflowing plane coefficients
+    (an infinite plane value is inside, a NaN one is not): the plain K2
+    and K1 against the reference's brute-force rasters, exact.  The
+    wireframe variants are in tests/test_torch_visibility.py."""
+    case = make("cpu")
+    W2, H2 = case.width, case.height
+    assert int(case.bins.overflow) == 0 and (W2 % 16 or H2 % 16)
+    pix = rc.rasterize_pixels(case.records, case.setup, case.bbox, case.bins,
+                              W2, H2)
+    vis = raster_xla.rasterize_xla(jnp.asarray(case.setup.numpy()), W2, H2)
+    np.testing.assert_array_equal(pix.tid.numpy(), np.asarray(vis.tri))
+    np.testing.assert_array_equal(pix.z.numpy(), np.asarray(vis.z))
+    assert 0.8 < pix.mask.float().mean() < 1.0
+    assert torch.isfinite(pix.varyings).all()
+    tid = pix.tid[pix.mask].to(torch.int64)
+    np.testing.assert_array_equal(
+        pix.mat_id[pix.mask].numpy(),
+        case.records[tid, 67].to(torch.int32).numpy())
+    if make is raster_cases.nonfinite_case:
+        finite = torch.isfinite(case.setup).all(1)
+        assert not finite.all() and not finite[tid.unique()].all()
+
+    sq = make("cpu", height=W2)
+    depth = rc.rasterize_depth(sq.setup, sq.bbox, sq.bins, W2)
+    want = raster_xla.rasterize_depth_xla(jnp.asarray(sq.setup.numpy()), W2)
+    np.testing.assert_array_equal(depth.numpy(), np.asarray(want))
+    assert (depth < 1.0).any() and (depth == 1.0).any()
+
+
 def test_record_lanes_equal_setup_rows(geometry):
     """K2's visibility phase reads its planes from the setup rows and its
     second phase from the records: lanes 0:16 of a record are the setup

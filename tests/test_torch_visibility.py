@@ -30,11 +30,15 @@ import kanirenderer_tpu as kani
 from kanirenderer_tpu.ops import raster_pallas, raster_xla
 
 from kanirenderer_tpu_torch.core.types import RenderConfig, RenderMode
+from kanirenderer_tpu_torch.ops import raster_cases
 from kanirenderer_tpu_torch.ops import raster_cuda as rc
 from kanirenderer_tpu_torch.ops import raster_xla as port_xla
+from kanirenderer_tpu_torch.ops.binning import bin_tiles
 from kanirenderer_tpu_torch.ops.interpolate import FAT_LANES
+from kanirenderer_tpu_torch.ops.raster_ablation import patch_survivors
 
-from test_torch_raster import D, H, W, _geometry, ref_setup
+from test_torch_raster import (D, H, W, _geometry, random_triangles,
+                               ref_setup)
 from test_torch_raster import pallas_loop_form  # noqa: F401  (fixture)
 
 
@@ -153,6 +157,93 @@ def test_wireframe_oracle(wire_geometry):
           f"{(~agree).sum()} pixels, {(~agree & ~ok).sum()} of them "
           "unstable")
     assert agree[ok].mean() >= 0.998
+
+
+@pytest.mark.parametrize("wireframe", [False, True])
+@pytest.mark.parametrize("make", [raster_cases.wire_interior_case,
+                                  raster_cases.nonfinite_case])
+def test_plain_visibility_matches_oracle_on_interior_and_nonfinite_cases(
+        make, wireframe):
+    """The plain K3 and K2w on wireframe interiors (whole tiles, whole
+    patches and single pixels farther than the threshold from every edge)
+    and on infinite or overflowing plane coefficients, against the
+    reference's brute-force raster: exact on winners and depth,
+    barycentrics within 1e-6.  The planes are exactly representable, and
+    the threshold band that the formulas' rounding could flip (the port's
+    l·(1/sqrt), the oracle's l/sqrt) is empty: 5e-5 px either side of
+    ``raster_cases.WIRE_THRESH`` no pixel changes its winner."""
+    case = make("cpu")
+    W2, H2, thresh = case.width, case.height, raster_cases.WIRE_THRESH
+    args = (case.setup, case.bbox, case.bins, W2, H2, wireframe)
+    vis = rc.rasterize(*args, thresh)
+    for eps in (-5e-5, 5e-5):
+        assert torch.equal(rc.rasterize(*args, thresh + eps).tri, vis.tri)
+    ref = raster_xla.rasterize_xla(jnp.asarray(case.setup.numpy()), W2, H2,
+                                   wireframe=wireframe, wire_thresh=thresh)
+    np.testing.assert_array_equal(vis.tri.numpy(), np.asarray(ref.tri))
+    np.testing.assert_array_equal(vis.z.numpy(), np.asarray(ref.z))
+    np.testing.assert_allclose(vis.bary.numpy(), np.asarray(ref.bary),
+                               rtol=0, atol=1e-6)
+    pix = rc.rasterize_pixels(case.records, *args, thresh)
+    assert torch.equal(pix.tid, vis.tri) and torch.equal(pix.z, vis.z)
+    assert torch.isfinite(pix.varyings).all()
+    covered = (vis.tri >= 0).float().mean().item()
+    won = set(vis.tri.unique().tolist())
+    if make is raster_cases.wire_interior_case:
+        # the large triangles' insides are transparent, their edges are not
+        assert (0.1 < covered < 0.3) if wireframe else covered > 0.85
+        assert {0, 1, 2} <= won
+    else:
+        # g = 0 with finite plane values keeps a whole band in the
+        # wireframe; an infinite plane value is inside, but its distance
+        # inf·0 is NaN and covers nothing, as jnp.minimum has it
+        assert {0, 7, 10} <= won
+        assert ({1, 2} <= won) != wireframe and not {4, 5, 8, 9} & won
+        band0 = vis.tri[4:, 2:11]
+        assert (band0 == 0).all()
+
+
+CASES = [raster_cases.list_overflow_case, raster_cases.chunk_cap_case,
+         raster_cases.wire_interior_case, raster_cases.nonfinite_case,
+         "random"]
+
+
+@pytest.mark.parametrize("make", CASES)
+def test_warp_rejection_drops_nothing_that_covers(make):
+    """The kernels' per-warp rejections (raster_common.cuh may_cover and,
+    for wireframe, may_pass), written out in PyTorch: no (triangle, 8×4
+    patch) they drop has a pixel the triangle covers, on every adversarial
+    case and on random triangles; and they do drop work (for wireframe,
+    more than without)."""
+    if make == "random":
+        st = random_triangles(3, 112, 64, T=2 * 128)
+        setup, bbox, width, height = st.setup, st.bbox, 112, 64
+        bins = bin_tiles(bbox, width, height, 16, 16, 640)
+    elif make is raster_cases.list_overflow_case:
+        case = make(104, 40, "cpu", chunks=4)
+    elif make is raster_cases.chunk_cap_case:
+        case = make(3, "cpu", extra=1)
+    else:
+        case = make("cpu")
+    if make != "random":
+        setup, bbox, bins = case.setup, case.bbox, case.bins
+        width, height = case.width, case.height
+    tile, chunk = rc._pairs(bins)
+    dropped = {}
+    for thresh in (None, raster_cases.WIRE_THRESH):
+        cov, _, _ = rc._eval_pairs(setup, bbox, tile, chunk, bins, width,
+                                   height, thresh)
+        hit, keep = patch_survivors(setup, bbox, tile, chunk, bins, thresh)
+        # (P, 128, 16·16) pixels → (P, 128, 8 patches): any pixel covered
+        P = cov.shape[0]
+        by_patch = cov.reshape(P, 128, 4, 4, 2, 8).permute(
+            0, 1, 2, 4, 3, 5).reshape(P, 128, 8, 32).any(-1)
+        assert cov.any() and not (by_patch & ~keep).any()
+        assert not (keep & ~hit[..., None]).any()
+        dropped[thresh] = int((hit[..., None] & ~keep).sum())
+    assert 0 < dropped[None] <= dropped[raster_cases.WIRE_THRESH]
+    if make is raster_cases.wire_interior_case:
+        assert dropped[raster_cases.WIRE_THRESH] > dropped[None] + 100
 
 
 def test_rasterize_config_bins_and_rasterizes(geometry):
