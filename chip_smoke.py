@@ -34,19 +34,48 @@ case); any failure exits non-zero:
      overflow, tiles at the 640-chunk cap with counted overflow, empty
      tiles, depth ties across chunks, a ragged raster, NaN planes,
      wireframe interiors, infinite and overflowing coefficients),
-     bit-equal.
+     bit-equal;
+ 13. load: writes the full-size stand-in (257,040 triangles, 25 materials,
+     256² textures) as OBJ + MTL + PNG files into a temporary directory
+     and loads it through api.load_model_or_default; also a small scene
+     whose first normal map is a 16-bit PNG (the separate texture tables);
+ 14. the application path, steady state: api.run on that OBJ at 1920×1080,
+     LIT_SHADOW, scripted fly-through, cached PCF table: K2 once per frame,
+     K1 exactly once in the run, no overflow warning;
+ 15. the same with cache_shadow_map=False: K1 and K2 once per frame; then
+     flythrough.fly over the same scene and inputs, twice, and both loops
+     once more in the reverse order, for comparison within one call;
+ 16. steady equals fresh: the loop's steady-state frame at the start pose
+     against render_frame with a fresh map, bit-equal on the u8 surface;
+ 17. events at full size: Tab through all five modes, the sun rotated for
+     three frames (no shadow pass while it turns, one once it has
+     stopped), a resize to 1600×900 (render size 1920×1024 by the ladder),
+     a depth pick, a dropped second OBJ, one frame through PngSink and
+     back through decode_png;
+ 18. cli.main in-process at 256×256 on the card, PNG sink;
+ 19. the small 16-bit scene through render_frame on the card against the
+     CPU, corner-major and vertex-major, golden criterion.
 Then a JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 WARMUP, FRAMES = 3, 30
 MODE_FRAMES = 10
+LOOP_FRAMES = 33
+STANDIN_TRIS, STANDIN_MATERIALS = 257_040, 25
+# The application path's window and the size phase 17 drags it to.
+APP_SIZE, RESIZE = (1920, 1080), (1600, 900)
 # Kernel vs plain version, same inputs on the card.  Both evaluate every
 # plane in the same order with no fused multiply-add, so every kernel must
 # be bit-equal (tolerance 0: torch.equal on every output).
@@ -163,6 +192,318 @@ def image_std(img) -> float:
     import torch
     scale = 255.0 if img.dtype == torch.float16 else 1.0
     return img.float().std().item() * scale
+
+
+def write_standin_obj(directory: str, name: str = "scene",
+                      normal16: bool = False, **standin) -> str:
+    """Write the sponza stand-in (models/procedural.standin_parts with the
+    keywords ``standin``) as ``<name>.obj`` + ``<name>.mtl`` + one PNG
+    diffuse and one PNG normal map per material into ``directory``;
+    returns the OBJ's path.  One ``g`` section per quad patch, floats as
+    %.9g so that float32 values round-trip, textures through the port's
+    ``encode_png``.  ``normal16``: the first material's normal map as a
+    16-bit PNG with values between the 8-bit levels, so that the loader
+    keeps the separate texture tables.  No OBJ asset ships with the
+    repository: the smoke run and the tests load what this writes."""
+    import numpy as np
+    from kanirenderer_tpu_torch.io.image import write_png
+    from kanirenderer_tpu_torch.models.procedural import standin_parts
+
+    textures, patches = standin_parts(**standin)
+    mtl = []
+    for i, t in enumerate(textures):
+        normal = t.normal[..., :3]
+        if normal16 and i == 0:
+            normal = normal.astype(np.uint16) * 256 + 100
+        write_png(os.path.join(directory, f"{name}_{i}_d.png"),
+                  t.diffuse[..., :3])
+        write_png(os.path.join(directory, f"{name}_{i}_n.png"), normal)
+        mtl.append(f"newmtl {t.name}\nmap_Kd {name}_{i}_d.png\n"
+                   f"map_Bump {name}_{i}_n.png\n")
+    with open(os.path.join(directory, f"{name}.mtl"), "w") as f:
+        f.write("".join(mtl))
+
+    lines = [f"mtllib {name}.mtl"]
+    for k, (pos, uv, nrm, tris, mats) in enumerate(patches):
+        lines.append(f"g patch_{k}")
+        lines += ["v %.9g %.9g %.9g" % tuple(p) for p in pos.tolist()]
+        lines += ["vt %.9g %.9g" % tuple(p) for p in uv.tolist()]
+        lines += ["vn %.9g %.9g %.9g" % tuple(p) for p in nrm.tolist()]
+        lines.append(f"usemtl {textures[int(mats[0])].name}")
+        lines += ["f %d/%d/%d %d/%d/%d %d/%d/%d" % (a, a, a, b, b, b, c, c, c)
+                  for a, b, c in (tris + 1).tolist()]
+    path = os.path.join(directory, f"{name}.obj")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+class CaptureSink:
+    """Keeps a copy of every presented frame's shape and of the last
+    frame (the loop's pinned buffers are reused two presents later)."""
+
+    def __init__(self):
+        self.shapes, self.last = [], None
+
+    def present(self, frame):
+        self.shapes.append(tuple(frame.shape))
+        self.last = frame.copy()
+
+    def close(self):
+        pass
+
+
+def timed_events(events, stamps, k1_counts=None):
+    """``events`` with the host clock (and, where wanted, the K1 launch
+    count so far) noted as the loop asks for each."""
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    for ev in events:
+        stamps.append(time.perf_counter())
+        if k1_counts is not None:
+            k1_counts.append(rc.launch_counts["rasterize_depth"])
+        yield ev
+
+
+def application_path(tmp: str, card: str) -> dict:
+    """Phases 13-19; returns the launch counts of the runs of phases 14,
+    15 and 17."""
+    import numpy as np
+    import torch
+    from kanirenderer_tpu_torch import api, cli, flythrough
+    from kanirenderer_tpu_torch.core.types import (RenderConfig, RenderMode,
+                                                   camera_state,
+                                                   default_camera,
+                                                   default_lights,
+                                                   frame_state)
+    from kanirenderer_tpu_torch.io.image import decode_png
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    from kanirenderer_tpu_torch.passes.frame import render_frame
+    from kanirenderer_tpu_torch.runtime import controllers
+    from kanirenderer_tpu_torch.runtime.display import PngSink
+    from kanirenderer_tpu_torch.runtime.loop import (Events, _bucket,
+                                                     run_loop,
+                                                     scripted_flythrough)
+
+    dev = torch.device("cuda", 0)
+    W, H = APP_SIZE
+
+    # ---- phase 13: write and load ----
+    t0 = time.perf_counter()
+    path = write_standin_obj(tmp)
+    small = write_standin_obj(tmp, name="deep", normal16=True,
+                              target_tris=6000, num_materials=4, tex_size=32)
+    extra = write_standin_obj(tmp, name="extra", target_tris=6000,
+                              num_materials=2, tex_size=32)
+    wrote = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+    scene, builder = api.load_model_or_default(path, device=dev)
+    torch.cuda.synchronize()
+    tris, mats = int(scene.tri_valid.sum()), scene.mat_blk_base.shape[0]
+    lo, hi = scene.position.amin(0), scene.position.amax(0)
+    secs = builder.load_seconds
+    print(f"phase 13 load: wrote {len(os.listdir(tmp))} files, "
+          f"{size / 1e6:.1f} MB in {wrote:.2f} s; loaded {tris} triangles, "
+          f"{mats} materials, {scene.position.shape[0]} vertices, bounds "
+          f"{[round(v, 1) for v in lo.tolist()]}.."
+          f"{[round(v, 1) for v in hi.tolist()]}; parse "
+          f"{secs['parse']:.2f} s, textures {secs['textures']:.2f} s, pack "
+          f"{secs['pack']:.2f} s; scene on the card "
+          f"{nbytes(*scene) / 1e6:.1f} MB, combined table "
+          f"{tuple(scene.tex_combined.shape)}", flush=True)
+    if (tris, mats) != (STANDIN_TRIS, STANDIN_MATERIALS) \
+            or not torch.isfinite(torch.stack([lo, hi])).all() \
+            or scene.tex_combined.shape[0] == 0:
+        fail("the loaded scene is not the stand-in")
+    deep, _ = api.load_model_or_default(small, device=dev)
+    if deep.tex_normal.dtype != torch.uint16 or deep.tex_combined.shape[0]:
+        fail("the 16-bit normal map did not select the separate tables")
+    del scene, builder
+
+    # ---- phases 14, 15: the loop, steady state and fresh ----
+    counts, medians = {}, {}
+    for phase, run, cache in ((14, "loop_steady", True),
+                              (15, "loop_fresh", False)):
+        stamps, warned = [], io.StringIO()
+        rc.reset_launch_counts()
+        with contextlib.redirect_stderr(warned):
+            stats = api.run(
+                path, "opengl", width=W, height=H,
+                mode=RenderMode.LIT_SHADOW, frames=LOOP_FRAMES, sink="null",
+                events=timed_events(scripted_flythrough(LOOP_FRAMES + 1),
+                                    stamps),
+                verbose=False, cache_shadow_map=cache)
+        torch.cuda.synchronize()
+        counts[run] = dict(rc.launch_counts)
+        ms = [(b - a) * 1e3 for a, b in zip(stamps[WARMUP:], stamps[WARMUP
+                                                                    + 1:])]
+        medians[run] = statistics.median(ms)
+        print(f"phase {phase} {run}: {stats['frames']} frames {W}x{H} "
+              f"LIT_SHADOW cache_shadow_map={cache}, launches "
+              f"{counts[run]}, median {medians[run]:.2f} ms per frame (min "
+              f"{min(ms):.2f}, max {max(ms):.2f}, after {WARMUP} warm-up "
+              f"frames), statistics mean_ms {stats['mean_ms']:.2f} fps "
+              f"{stats['fps']:.1f}, warnings {warned.getvalue()!r} on {card}",
+              flush=True)
+        n = LOOP_FRAMES
+        want = {"rasterize_depth": 1 if cache else n, "rasterize_pixels": n,
+                "rasterize_pixels_wireframe": 0, "rasterize_visibility": 0}
+        if stats["frames"] != n or counts[run] != want:
+            fail(f"{run}: launch counts {counts[run]} != {want}")
+        if "binning dropped" in warned.getvalue() or stats["healed"]:
+            fail(f"{run}: overflow or a failed frame")
+    # A second round in the reverse order, with fly() over the same scene
+    # and scripted inputs between the two (each pose one loop frame's
+    # median apart; the loop integrates the wall clock, so the poses are
+    # about, not exactly, the loop's).  The host of a card is shared and
+    # a run of frames can sit several ms above the next one of the same
+    # code: read the two rounds side by side.
+    scene, builder = api.load_model_or_default(path, device=dev)
+    host_cam = controllers.HostCamera(
+        np.array([0.0, 5.0, 10.0], np.float32), np.deg2rad(np.float32(-90)),
+        np.deg2rad(np.float32(-20)))
+    cams = flythrough.camera_path(
+        LOOP_FRAMES, host_cam, controllers.CameraInputs(
+            forward=1.0, rotate_dx=2.0, rotate_dy=0.3),
+        dt=medians["loop_fresh"] / 1e3)
+    second = {}
+    for run in ("fly", "fly", "loop_fresh", "loop_steady"):
+        if run == "fly":
+            ms = [t for _, t in flythrough.fly(
+                scene, flythrough.BENCH_CONFIG, cams)][WARMUP:]
+        else:
+            stamps = []
+            run_loop(scene, timed_events(
+                scripted_flythrough(LOOP_FRAMES + 1), stamps),
+                config=flythrough.BENCH_CONFIG.with_(
+                    cache_shadow_map=run == "loop_steady"),
+                sink_kind="null", max_frames=LOOP_FRAMES, builder=builder)
+            ms = [(b - a) * 1e3 for a, b in zip(stamps[WARMUP:],
+                                                stamps[WARMUP + 1:])]
+        second.setdefault(run, []).append(statistics.median(ms))
+    print(f"phase 15 medians ms per frame, first / second round: loop "
+          f"steady {medians['loop_steady']:.2f} / "
+          f"{second['loop_steady'][0]:.2f}, loop fresh "
+          f"{medians['loop_fresh']:.2f} / {second['loop_fresh'][0]:.2f}, "
+          f"flythrough.fly fresh on the same scene and inputs "
+          f"{second['fly'][0]:.2f} / {second['fly'][1]:.2f} on {card}",
+          flush=True)
+
+    # ---- phase 16: steady equals fresh ----
+    cfg = RenderConfig(width=W, height=H, mode=RenderMode.LIT_SHADOW,
+                       output_u8=True)
+    sink = CaptureSink()
+    rc.reset_launch_counts()
+    run_loop(scene, [Events()] * 3, config=cfg, sink=sink, builder=builder)
+    k1 = rc.launch_counts["rasterize_depth"]
+    state = frame_state(scene, default_camera(device=dev),
+                        default_lights(device=dev))
+    fresh = render_frame(scene, state, cfg.with_(cache_shadow_map=False))
+    steady = torch.from_numpy(sink.last)
+    equal = torch.equal(steady, fresh.image.cpu())
+    frac8, mean = golden_diff(steady, fresh.image.cpu())
+    print(f"phase 16 steady equals fresh: bit-equal {equal} (>8 levels "
+          f"{frac8:.5f}, mean {mean:.4f}), shadow passes in 3 loop frames "
+          f"{k1}, image std {image_std(steady):.2f}, covered "
+          f"{(fresh.depth < 1.0).float().mean().item():.3f}", flush=True)
+    if not equal or k1 != 1 or image_std(steady) < 1.0:
+        fail("the loop's steady-state frame is not the fresh frame")
+
+    # ---- phase 17: events ----
+    tab = Events(pressed=frozenset(["tab"]))
+    turn = Events(held=frozenset(["r"]))
+    events = [Events(), Events(), turn, turn, turn, Events(), Events(),
+              Events(resize=RESIZE),
+              Events(click_pos=(RESIZE[0] // 2, RESIZE[1] // 2)),
+              Events(dropped_file=extra), tab, tab, tab, tab, tab, Events()]
+    tris_before = sum(len(t) for t in builder.tri_idx)
+    sink, k1_at, stamps = CaptureSink(), [], []
+    rc.reset_launch_counts()
+    stats = run_loop(scene, timed_events(events, stamps, k1_at), config=cfg,
+                     sink=sink, builder=builder)
+    torch.cuda.synchronize()
+    counts["events"] = dict(rc.launch_counts)
+    tris_after = sum(len(t) for t in builder.tri_idx)
+    png = os.path.join(tmp, "present.png")
+    PngSink(png).present(sink.last)
+    with open(png, "rb") as f:
+        back = decode_png(f.read())
+    print(f"phase 17 events: {stats['frames']} frames, final mode "
+          f"{stats['mode']}, K1 launches before each frame {k1_at}, launches "
+          f"{counts['events']}, view {stats['view_size']} render "
+          f"{stats['render_size']}, presented {sorted(set(sink.shapes))}, "
+          f"picked {stats['picked']}, triangles {tris_before} -> "
+          f"{tris_after}, PNG round trip equal "
+          f"{np.array_equal(back, sink.last)}", flush=True)
+    n = len(events)
+    # frame 1 settles the table; frames 2-4 turn the sun; frame 5 finds it
+    # still; the drop (frame 9) rebuilds; DEBUG (frame 11) rasterizes its
+    # own map.
+    want_k1 = [0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 4, 4, 4, 4]
+    want = {"rasterize_depth": 4, "rasterize_pixels": n - 1,
+            "rasterize_pixels_wireframe": 1, "rasterize_visibility": 0}
+    picked = stats["picked"]
+    if (stats["frames"] != n or stats["mode"] != "LIT_SHADOW"
+            or k1_at != want_k1 or counts["events"] != want
+            or stats["healed"]):
+        fail(f"events: K1 schedule {k1_at} != {want_k1} or launches "
+             f"{counts['events']} != {want}")
+    # the ladder takes 1600x900 to a 1920x1024 render target
+    padded = (_bucket(RESIZE[0]), _bucket(RESIZE[1]))
+    if (stats["view_size"], stats["render_size"]) != (RESIZE, padded) \
+            or sink.shapes != [(H, W, 3)] * 7 \
+            + [(RESIZE[1], RESIZE[0], 3)] * (n - 7):
+        fail("events: the resize did not present frames of the view's size")
+    if len(picked) != 1 or not (cfg.znear <= picked[0][3] <= cfg.zfar
+                                and 0.0 <= picked[0][2] <= 1.0):
+        fail(f"events: depth pick {picked}")
+    if tris_after <= tris_before or not np.array_equal(back, sink.last) \
+            or image_std(torch.from_numpy(sink.last)) < 1.0:
+        fail("events: file drop or PNG round trip")
+    del scene, builder
+
+    # ---- phase 18: the command line ----
+    out = os.path.join(tmp, "cli_%d.png")
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        code = cli.main([small, "opengl", "--width", "256", "--height",
+                         "256", "--frames", "2", "--sink", "png", "--out",
+                         out])
+    with open(out % 1, "rb") as f:
+        img = decode_png(f.read())
+    print(f"phase 18 cli: exit {code}, {img.shape} {img.dtype} std "
+          f"{img.std():.2f}; said {said.getvalue().splitlines()[-1]!r}",
+          flush=True)
+    if code != 0 or img.shape != (256, 256, 3) or img.std() < 5.0:
+        fail("the command line did not write a plausible frame")
+
+    # ---- phase 19: the 16-bit scene, card against CPU ----
+    scfg = RenderConfig(width=256, height=192, shadow_dim=256,
+                        output_u8=True)
+    cam0 = flythrough.BENCH_CAM0
+    images = {}
+    for key, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        sc, _ = api.load_model_or_default(small, device=d)
+        e = sc.corner_pos[:0, :0]
+        bare = sc._replace(corner_pos=e, corner_uv=e, corner_normal=e,
+                           corner_tangent=e, corner_bitangent=e,
+                           tri_extra=sc.tri_extra[:0])
+        for form, s in (("corner", sc), ("vertex", bare)):
+            st = frame_state(s, camera_state(cam0.position, cam0.yaw,
+                                             cam0.pitch, d),
+                             default_lights(device=d))
+            images[key, form] = render_frame(s, st, scfg).image.cpu()
+    for form in ("corner", "vertex"):
+        frac8, mean = golden_diff(images["cpu", form], images["cuda", form])
+        print(f"phase 19 16-bit scene {form}-major cuda vs cpu: >8 levels "
+              f"{frac8:.5f} (tol {GOLD_FRAC8}), mean {mean:.4f} (tol "
+              f"{GOLD_MEAN}), std {image_std(images['cuda', form]):.2f}; "
+              f"equal to the corner-major frame on the card "
+              f"{torch.equal(images['cuda', form], images['cuda', 'corner'])}",
+              flush=True)
+        if not (frac8 < GOLD_FRAC8 and mean < GOLD_MEAN) \
+                or image_std(images["cuda", form]) < 10.0:
+            fail(f"16-bit scene, {form}-major: card and CPU disagree")
+    return counts
 
 
 def main() -> int:
@@ -519,6 +860,21 @@ def main() -> int:
             fail(f"phase 12 {case.name}: kernels disagree with their plain "
                  "versions")
 
+
+    # ---- phases 13-19: the application path ----
+    tmp = tempfile.mkdtemp(prefix="kani_smoke_")
+    try:
+        app_counts = application_path(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, k in kernels.items():
+        k.update({f"launches_{run}": c[name]
+                  for run, c in app_counts.items()})
+    if not (kernels["rasterize_depth"]["launches_loop_steady"]
+            and kernels["rasterize_pixels"]["launches_loop_steady"]
+            and kernels["rasterize_pixels_wireframe"]["launches_events"]):
+        fail("a kernel of the application path was never launched on it")
+
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -529,9 +885,12 @@ def main() -> int:
         k.update(name=name, route="cuda", library_ms=None)
         if not k.get("launches"):
             fail(f"{name} was never launched on its path")
-        # K3's row also carries its wireframe variant's numbers.
+        # K3's row also carries its wireframe variant's numbers; every
+        # row the launches of the application path's runs (phases 14, 15
+        # and 17).
         rows.append({f: k[f] for f in (*order, *(
-            f for f in k if f.endswith("_wireframe")))})
+            f for f in k if f.endswith("_wireframe")
+            or f.startswith("launches_")))})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,6 +64,41 @@ def ortho(left, right, bottom, top, near, far, device=None) -> Tensor:
     return m
 
 
+def _rotation(rad: Tensor, i: int, j: int) -> Tensor:
+    """Rotation by ``rad`` in the (i, j) coordinate plane."""
+    c, s = torch.cos(rad), torch.sin(rad)
+    m = torch.zeros((3, 3), dtype=F32, device=rad.device)
+    k = 3 - i - j
+    m[k, k] = 1.0
+    m[i, i] = c
+    m[i, j] = -s
+    m[j, i] = s
+    m[j, j] = c
+    return m
+
+
+def rotation_x(rad: Tensor) -> Tensor:
+    return _rotation(rad, 1, 2)
+
+
+def rotation_y(rad: Tensor) -> Tensor:
+    return _rotation(rad, 2, 0)
+
+
+def rotation_z(rad: Tensor) -> Tensor:
+    return _rotation(rad, 0, 1)
+
+
+def rotate_direction_zyx(direction: Tensor, deg_x, deg_y, deg_z) -> Tensor:
+    """Apply Rz·Ry·Rx (degrees) to a direction vector, as
+    DirectionalLight::rotate_light (reference src/light.rs:112-119)."""
+    dev = direction.device
+    rx, ry, rz = (fn(torch.deg2rad(torch.as_tensor(d, dtype=F32, device=dev)))
+                  for fn, d in ((rotation_x, deg_x), (rotation_y, deg_y),
+                                (rotation_z, deg_z)))
+    return (rz @ ry @ rx) @ direction
+
+
 def quat_to_mat3(q: Tensor) -> Tensor:
     """cgmath ``Matrix3::from(Quaternion)`` for q = (x, y, z, w); no
     normalization, so the zero quaternion maps to the identity."""

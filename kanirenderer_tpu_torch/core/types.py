@@ -46,6 +46,9 @@ class RenderMode(enum.IntEnum):
     WIREFRAME = 3
     DEBUG = 4
 
+    def next(self) -> "RenderMode":
+        return RenderMode((int(self) + 1) % 5)
+
 
 class DebugTexture(enum.IntEnum):
     SCENE_DEPTH = 0
@@ -66,12 +69,14 @@ class Scene(NamedTuple):
     tri_valid: Tensor       # (T,) bool, False for padding rows
     object_model: Tensor    # (O, 4, 4) f32
     object_normal: Tensor   # (O, 3, 3) f32
-    tex_diffuse: Tensor     # (0, 128) u8 — separate tables are not ported
-    tex_normal: Tensor      # (0, 128) u8
-    mat_blk_base: Tensor    # (M,) i32 first combined-table row per material
+    tex_diffuse: Tensor     # (R, 128) u8 sqrt-encoded diffuse block rows
+    tex_normal: Tensor      # (R, 128) u16/f32 normal-map block rows; both
+    #                         are (0, 128) u8 where tex_combined serves
+    mat_blk_base: Tensor    # (M,) i32 first table row per material
     mat_blk_w: Tensor       # (M,) i32 blocks per texture row
     mat_tex_size: Tensor    # (M, 2) i32 (w, h)
     tex_combined: Tensor    # (R, 128) u8 combined diffuse+normal block rows
+    #                         of an all-u8 scene, else (0, 128)
     tri_extra: Tensor       # (6, T) f32 [mat, tex_w, tex_h, hi, lo, blk_w]
     corner_pos: Tensor      # (9, T) f32 rows corner·3 + comp
     corner_uv: Tensor       # (6, T) f32
@@ -135,10 +140,11 @@ class RenderConfig:
     output_u8, present_scale, wire_thresh_px, tile_w/tile_h/shadow_tile_h
     (one CUDA block per tile, one thread per pixel, so tile_w·tile_h is
     the block size) and the per-tile chunk caps max_chunks_per_tile /
-    shadow_chunks_per_tile.  cache_shadow_map must stay False: cached
-    shadow maps are not ported.  The remaining fields tune the TPU path
-    and are carried only so a configuration reads the same in both
-    packages.
+    shadow_chunks_per_tile.  cache_shadow_map is read by the interactive
+    loop (runtime/loop.py), which then reuses the PCF table while the sun
+    and the geometry stand still; ``render_frame`` itself renders what its
+    arguments say.  The remaining fields tune the TPU path and are carried
+    only so a configuration reads the same in both packages.
     """
 
     width: int = 1440
@@ -161,7 +167,7 @@ class RenderConfig:
     max_global_chunks: int = 128
     shadow_chunks_per_tile: int = 640
     shadow_tile_h: int = 16
-    cache_shadow_map: bool = False
+    cache_shadow_map: bool = True
     deferred: bool = False
     output_u8: bool = False
     present_scale: int = 1
@@ -172,6 +178,9 @@ class RenderConfig:
     @property
     def aspect(self) -> float:
         return self.width / self.height
+
+    def with_(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def _f32(x, device) -> Tensor:
@@ -200,6 +209,42 @@ def default_lights(num_point_lights: int = 1, device="cuda") -> Lights:
         shadow_scene_size=_f32(3000.0, device),
     )
     return Lights(movable=movable, points=points, directional=directional)
+
+
+def spawn_point_lights(num: int, rng: np.random.RandomState | None = None,
+                       device="cuda") -> PointLights:
+    """The reference's (disabled) random light spawner
+    (src/lib.rs:453-512): slot 0 is the far black dummy light; slots
+    1..num-1 are red lights (colour [10, 0, 0], range 256) at random
+    positions x, z ∈ [-1000, 1000), y ∈ [10, 15); with num >= 50 a green
+    and a blue set of ``num`` lights each are appended, 3·num in all.  The
+    draws come from ``rng`` in the order of the JAX package's function, so
+    the same ``RandomState`` gives the same lights."""
+    rng = rng or np.random.RandomState(0)
+
+    def rand_pos(n):
+        p = np.empty((n, 3), np.float32)
+        p[:, 0] = rng.uniform(-1000.0, 1000.0, n)
+        p[:, 1] = rng.uniform(10.0, 15.0, n)
+        p[:, 2] = rng.uniform(-1000.0, 1000.0, n)
+        return p
+
+    num = max(int(num), 1)
+    pos = rand_pos(num)
+    pos[0] = [99999.0, 999999.0, 99999.0]          # the dummy seed light
+    col = np.tile(np.array([10.0, 0.0, 0.0], np.float32), (num, 1))
+    col[0] = 0.0
+    rngs = np.full(num, 256.0, np.float32)
+    rngs[0] = 0.0
+    if num >= 50:
+        pos = np.concatenate([pos, rand_pos(num), rand_pos(num)])
+        col = np.concatenate([
+            col,
+            np.tile(np.array([0.0, 10.0, 0.0], np.float32), (num, 1)),
+            np.tile(np.array([0.0, 0.0, 10.0], np.float32), (num, 1))])
+        rngs = np.concatenate([rngs, np.full(2 * num, 256.0, np.float32)])
+    return PointLights(position=_f32(pos, device), color=_f32(col, device),
+                       range=_f32(rngs, device))
 
 
 def camera_state(position, yaw, pitch, device="cuda") -> CameraState:

@@ -4,21 +4,33 @@ Counterpart of the numpy paths of ``kanirenderer_tpu/io/scene_loader.py``
 (reference src/resources.rs:63-294): averaged per-vertex tangent frames,
 Morton-ordered triangles padded to whole chunks, the combined
 diffuse+normal block table, the static per-triangle material lanes and the
-corner-major attribute planes.  OBJ/MTL and texture-file loading are not
-ported yet; callers fill a ``SceneBuilder`` with arrays directly.
+corner-major attribute planes.  ``SceneBuilder.add_model`` takes a parsed
+OBJ with its textures (default-normal fallback for missing files and
+missing material slots, src/resources.rs:105-178; instances spawned at
+``rand(i..=10i)`` diagonal positions with a zero quaternion,
+src/resources.rs:269-280); procedural scenes fill the lists of a
+``SceneBuilder`` directly.  All-u8 scenes pack diffuse and normal maps
+into one combined table; a normal map of 16 bits or floats keeps separate
+tables at its source depth (src/texture.rs:113-129).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import os
+
 import numpy as np
 import torch
 
 from kanirenderer_tpu_torch.core import math3d
 from kanirenderer_tpu_torch.core.types import CHUNK_SIZE, Scene
+from kanirenderer_tpu_torch.io import image as image_mod
+from kanirenderer_tpu_torch.io import obj as obj_mod
 from kanirenderer_tpu_torch.io.image import default_normal_image
-from kanirenderer_tpu_torch.ops.sampling import CMB_BX, build_combined_blocks
+from kanirenderer_tpu_torch.ops.sampling import (CMB_BX, MAT_BX,
+                                                 build_combined_blocks,
+                                                 build_material_blocks)
 
 
 def _srgb_to_linear_np(c: np.ndarray) -> np.ndarray:
@@ -94,8 +106,10 @@ class MaterialTextures:
 
 @dataclass
 class SceneBuilder:
-    """Accumulates geometry (with per-object transforms) and textures, then
-    packs a Scene on a device."""
+    """Accumulates models (each with instances) and textures, then packs a
+    Scene on a device.  The reference's mutable ``Vec<Model>`` with its
+    file-drop append (src/lib.rs:2122-2137) as a host-side accumulator: the
+    lists stay on the host, so ``build`` can be called again."""
 
     positions: list = field(default_factory=list)
     uvs: list = field(default_factory=list)
@@ -107,6 +121,52 @@ class SceneBuilder:
     tri_mat: list = field(default_factory=list)
     textures: list = field(default_factory=list)   # MaterialTextures per slot
     object_transforms: list = field(default_factory=list)  # (pos, quat)
+    load_seconds: dict = field(default_factory=dict)  # set by the API's load
+
+    def add_model(self, obj_scene: obj_mod.ObjScene, tex_dir: str,
+                  file_type: str = "opengl", instances: int = 1,
+                  rng: np.random.RandomState | None = None) -> None:
+        """Append a parsed OBJ: one texture slot per material (a default
+        one when the MTL defines none) and every mesh once per instance."""
+        if file_type not in ("opengl", "default"):
+            raise ValueError(f"unknown file type {file_type!r}")
+        opengl = file_type == "opengl"
+        rng = rng or np.random.RandomState(0)
+
+        mat_base = len(self.textures)
+        mats = obj_scene.materials \
+            or [obj_mod.ObjMaterial(name="default material")]
+        for m in mats:
+            self.textures.append(MaterialTextures(
+                name=m.name,
+                diffuse=_load_or_default(tex_dir, m.diffuse_texture, False,
+                                         opengl),
+                normal=_load_or_default(tex_dir, m.normal_texture, True,
+                                        opengl)))
+
+        mesh_blocks = [(mesh, *compute_tbn(mesh.positions, mesh.texcoords,
+                                           mesh.indices))
+                       for mesh in obj_scene.meshes]
+        vert_base = sum(len(p) for p in self.positions)
+        for inst in range(instances):
+            # One uniform draw in [i, 10i] shared by the three axes, zero
+            # rotation quaternion; instance 0 sits at the origin.
+            p = rng.uniform(inst, inst * 10.0) if inst > 0 else 0.0
+            obj_id = len(self.object_transforms)
+            self.object_transforms.append(
+                (np.array([p, p, p], np.float32), np.zeros(4, np.float32)))
+            for mesh, t, b in mesh_blocks:
+                nverts = len(mesh.positions)
+                self.positions.append(mesh.positions)
+                self.uvs.append(mesh.texcoords)
+                self.normals.append(mesh.normals)
+                self.tangents.append(t)
+                self.bitangents.append(b)
+                self.vertex_object.append(np.full(nverts, obj_id, np.int32))
+                self.tri_idx.append(mesh.indices + vert_base)
+                self.tri_mat.append(np.full(
+                    len(mesh.indices), mat_base + mesh.material_id, np.int32))
+                vert_base += nverts
 
     def build(self, device="cuda") -> Scene:
         def cat(parts, empty):
@@ -136,34 +196,75 @@ class SceneBuilder:
             tri_mat = np.concatenate([tri_mat, np.zeros(pad, np.int32)])
             tri_valid[ntris:] = False
 
-        # Combined diffuse+normal block table: diffuse sRGB u8 → linear →
-        # round(sqrt(linear)·255), the normal map resampled to the diffuse
-        # resolution and kept as raw u8.
+        # Block-window texel tables.  Diffuse: sRGB u8 → linear →
+        # round(sqrt(linear)·255).  The normal map is resampled to the
+        # diffuse resolution and kept at its source depth.
         textures = self.textures or [MaterialTextures(
             "default", default_normal_image(), default_normal_image())]
-        rows, blk_base, blk_w, tex_size = [], [], [], []
-        base = 0
+        texdata = []
         for t in textures:
             d = _srgb_to_linear_np(t.diffuse[..., :3].astype(np.float32)
                                    / 255.0)
             d8 = np.round(np.sqrt(np.clip(d, 0.0, 1.0)) * 255.0) \
                 .astype(np.uint8)
             n = t.normal[..., :3]
-            if n.dtype != np.uint8:
-                raise NotImplementedError(
-                    "normal maps deeper than u8 need the separate block "
-                    "tables, which are not ported yet")
+            if n.dtype == np.float64:
+                n = n.astype(np.float32)
             h, w = d8.shape[:2]
             if n.shape[:2] != (h, w):
                 yi = (np.arange(h) * n.shape[0] // h)
                 xi = (np.arange(w) * n.shape[1] // w)
                 n = n[yi][:, xi]
-            rows.append(build_combined_blocks(d8, n))
-            blk_base.append(base)
-            blk_w.append(-(-w // CMB_BX))
-            tex_size.append((w, h))
-            base += rows[-1].shape[0]
-        tex_combined = np.concatenate(rows)
+            texdata.append((d8, n, w, h))
+
+        ndts = {n.dtype for _, n, _, _ in texdata}
+        if any(np.issubdtype(dt, np.floating) for dt in ndts):
+            ndt = np.float32
+        elif np.dtype(np.uint16) in ndts:
+            ndt = np.uint16
+        else:
+            ndt = np.uint8
+
+        empty_u8 = np.zeros((0, 128), np.uint8)
+        blk_base, blk_w, tex_size = [], [], []
+        base = 0
+        if ndt == np.uint8:
+            # All-u8 scene: one combined table, one gather per pixel.
+            rows = []
+            for d8, n, w, h in texdata:
+                rows.append(build_combined_blocks(d8, n))
+                blk_base.append(base)
+                blk_w.append(-(-w // CMB_BX))
+                tex_size.append((w, h))
+                base += rows[-1].shape[0]
+            tex_combined = np.concatenate(rows)
+            tex_diffuse = tex_normal = empty_u8
+        else:
+            # A deeper normal map is present: separate tables, the normal
+            # one at the deepest source depth; mixed scenes promote
+            # losslessly (u8 → u16 is ×257).
+            def promote(b):
+                if b.dtype == ndt:
+                    return b
+                if ndt == np.uint16:
+                    return b.astype(np.uint16) * 257
+                if b.dtype == np.uint8:
+                    return b.astype(np.float32) / 255.0
+                if b.dtype == np.uint16:
+                    return b.astype(np.float32) / 65535.0
+                return b.astype(np.float32)
+
+            dblocks, nblocks = [], []
+            for d8, n, w, h in texdata:
+                dblocks.append(build_material_blocks(d8))
+                nblocks.append(promote(build_material_blocks(n)))
+                blk_base.append(base)
+                blk_w.append(-(-w // MAT_BX))
+                tex_size.append((w, h))
+                base += dblocks[-1].shape[0]
+            tex_diffuse = np.concatenate(dblocks)
+            tex_normal = np.concatenate(nblocks)
+            tex_combined = empty_u8
         mat_blk_base = np.asarray(blk_base, np.int32)
         mat_blk_w = np.asarray(blk_w, np.int32)
         mat_tex_size = np.asarray(tex_size, np.int32)
@@ -195,14 +296,13 @@ class SceneBuilder:
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        empty_u8 = np.zeros((0, 128), np.uint8)
         return Scene(
             position=t(position), uv=t(uv), normal=t(normal),
             tangent=t(tangent), bitangent=t(bitangent),
             vertex_object=t(vertex_object), tri_idx=t(tri_idx),
             tri_mat=t(tri_mat), tri_valid=t(tri_valid),
             object_model=t(models), object_normal=t(normals_m),
-            tex_diffuse=t(empty_u8), tex_normal=t(empty_u8),
+            tex_diffuse=t(tex_diffuse), tex_normal=t(tex_normal),
             mat_blk_base=t(mat_blk_base), mat_blk_w=t(mat_blk_w),
             mat_tex_size=t(mat_tex_size), tex_combined=t(tex_combined),
             tri_extra=t(tri_extra),
@@ -213,3 +313,31 @@ class SceneBuilder:
             tri_object=t(np.asarray(vertex_object, np.int64)[ti[:, 0]]
                          .astype(np.int32)),
         )
+
+
+def _load_or_default(tex_dir: str, tex_name: str | None, is_normal: bool,
+                     opengl: bool) -> np.ndarray:
+    """Texture resolution with the reference's fallback chain
+    (src/resources.rs:105-163): a missing name or a failed load gives the
+    default normal map, as the diffuse fallback too.  The file is looked
+    for relative to the CWD (src/resources.rs:18-22), then in the model's
+    directory.  Normal maps keep their source bit depth."""
+    if tex_name:
+        for cand in (tex_name, os.path.join(tex_dir, tex_name)):
+            if os.path.exists(cand):
+                if is_normal:
+                    return image_mod.load_texture_native(cand, True, opengl)
+                return image_mod.load_texture_rgba8(cand, False, opengl)
+    return default_normal_image()
+
+
+def load_scene(path: str, file_type: str = "opengl", instances: int = 1,
+               rng: np.random.RandomState | None = None,
+               device="cuda") -> Scene:
+    """Load an OBJ file into a packed Scene on ``device`` (≈ reference
+    load_model, src/resources.rs:63-294)."""
+    builder = SceneBuilder()
+    builder.add_model(obj_mod.load_obj(path),
+                      os.path.dirname(os.path.abspath(path)),
+                      file_type=file_type, instances=instances, rng=rng)
+    return builder.build(device)

@@ -1,10 +1,16 @@
-"""The sponza-scale stand-in scene (counterpart of
-``kanirenderer_tpu/models/procedural.sponza_standin_scene``).
+"""Procedural scenes (counterpart of
+``kanirenderer_tpu/models/procedural.py``): the default cube, the
+sponza-scale stand-in and the layered occlusion scene.
 
-An architectural scene matched to sponza's workload — about 262K
-triangles, 25 textured materials, 256² textures — built from arrays, with
-no file IO.  The same seed gives the same scene, array for array, as the
-JAX package's scene packing on its numpy paths.
+The reference ships ``res/cube.obj`` (12 triangles, one untextured
+material) and benchmarks against ``res/sponza.obj``.  ``cube_scene``
+builds the same class of asset through the OBJ parser;
+``sponza_standin_scene`` is an architectural scene matched to sponza's
+workload — about 262K triangles, 25 textured materials, 256² textures —
+and ``layered_scene`` stacks screen-filling walls in depth.  The last two
+are built from arrays, with no file IO.  The same arguments give the same
+scene, array for array, as the JAX package's scene packing on its numpy
+paths.
 """
 
 from __future__ import annotations
@@ -12,8 +18,54 @@ from __future__ import annotations
 import numpy as np
 
 from kanirenderer_tpu_torch.core.types import Scene
+from kanirenderer_tpu_torch.io import obj as obj_mod
 from kanirenderer_tpu_torch.io.scene_loader import (MaterialTextures,
                                                     SceneBuilder, compute_tbn)
+
+
+def make_cube_obj(half: float = 25.0) -> str:
+    """OBJ text for an axis-aligned cube — one coherently-unwrapped quad per
+    face (CCW outward winding, unit-square UVs per face, so the generated
+    tangent frames are orthonormal) — the same class of asset as
+    res/cube.obj."""
+    h = half
+    # per-face: (normal, four CCW corners seen from outside)
+    faces = [
+        ((0, 0, 1), [(-h, -h, h), (h, -h, h), (h, h, h), (-h, h, h)]),
+        ((0, 0, -1), [(h, -h, -h), (-h, -h, -h), (-h, h, -h), (h, h, -h)]),
+        ((1, 0, 0), [(h, -h, h), (h, -h, -h), (h, h, -h), (h, h, h)]),
+        ((-1, 0, 0), [(-h, -h, -h), (-h, -h, h), (-h, h, h), (-h, h, -h)]),
+        ((0, 1, 0), [(-h, h, h), (h, h, h), (h, h, -h), (-h, h, -h)]),
+        ((0, -1, 0), [(-h, -h, -h), (h, -h, -h), (h, -h, h), (-h, -h, h)]),
+    ]
+    uvs = [(0.0, 0.0), (1.0, 0.0), (1.0, 1.0), (0.0, 1.0)]
+    lines = ["o Cube", "mtllib none.mtl"]
+    for _, corners in faces:
+        for v in corners:
+            lines.append(f"v {v[0]} {v[1]} {v[2]}")
+    for n, _ in faces:
+        lines.append(f"vn {n[0]} {n[1]} {n[2]}")
+    for u in uvs:
+        lines.append(f"vt {u[0]} {u[1]}")
+    lines.append("usemtl Material")
+    for fi in range(6):
+        base = fi * 4 + 1
+        ids = [(base + k, k + 1, fi + 1) for k in range(4)]
+        for tri in ((0, 1, 2), (0, 2, 3)):
+            lines.append("f " + " ".join(
+                f"{ids[k][0]}/{ids[k][1]}/{ids[k][2]}" for k in tri))
+    return "\n".join(lines) + "\n"
+
+
+def cube_scene(instances: int = 1, device="cuda") -> Scene:
+    """The default cube — reference ``load_default_cube``
+    (src/resources.rs:296-303): an untextured material, so the default
+    normal image stands in for both its diffuse and its normal map."""
+    parsed = obj_mod.parse_obj(make_cube_obj(), mtl_loader=lambda p: None)
+    b = SceneBuilder()
+    b.add_model(parsed, tex_dir=".", file_type="opengl", instances=instances,
+                rng=np.random.RandomState(0))
+    return b.build(device)
 
 
 def _checker_texture(size: int, rgb_a, rgb_b, tiles: int = 8) -> np.ndarray:
@@ -67,19 +119,81 @@ def _grid_quads(origin, du, dv, nu, nv, vbase):
     return pos, uv, nrm, tris
 
 
-def sponza_standin_scene(target_tris: int = 262_000, num_materials: int = 25,
-                         tex_size: int = 256, seed: int = 0,
-                         device="cuda") -> Scene:
-    """Courtyard with floor, ceiling, walls and 24 columns: about
-    ``target_tris`` triangles over ``num_materials`` checker/noise-normal
-    materials.  Deterministic in ``seed``."""
+def _add_patches(b: SceneBuilder, positions, uvs, normals, tris,
+                 mats) -> None:
+    """Append the patches as one object at the origin, each triangle
+    keeping its patch's material."""
+    pos = np.concatenate(positions)
+    tex = np.concatenate(uvs)
+    idx = np.concatenate(tris)
+    t, bt = compute_tbn(pos, tex, idx)
+    b.positions.append(pos)
+    b.uvs.append(tex)
+    b.normals.append(np.concatenate(normals))
+    b.tangents.append(t)
+    b.bitangents.append(bt)
+    b.vertex_object.append(np.zeros(len(pos), np.int32))
+    b.tri_idx.append(idx)
+    b.tri_mat.append(np.concatenate(mats))
+    b.object_transforms.append(
+        (np.zeros(3, np.float32), np.zeros(4, np.float32)))
+
+
+def layered_scene(layers: int = 4, target_tris: int = 260_000,
+                  tex_size: int = 256, seed: int = 7,
+                  device="cuda") -> Scene:
+    """Occlusion-heavy content: ``layers`` parallel screen-filling walls
+    stacked in depth in front of the default camera (position (0, 5, 10)
+    looking −Z), each subdivided to about target_tris/layers triangles.
+    Everything behind the front wall is fully occluded."""
     rng = np.random.RandomState(seed)
     b = SceneBuilder()
+    for i in range(layers):
+        col_a = rng.randint(60, 255, 3)
+        col_b = (col_a * 0.5).astype(np.int64)
+        b.textures.append(MaterialTextures(
+            name=f"layer_{i}",
+            diffuse=_checker_texture(tex_size, col_a, col_b, tiles=8),
+            normal=_noise_normal_texture(tex_size, rng)))
 
+    per_layer = max(1, target_tris // (2 * layers))
+    nu = max(1, int(np.sqrt(per_layer)))
+    nv = max(1, per_layer // nu)
+    positions, uvs, normals, tris, mats = [], [], [], [], []
+    vbase = 0
+    for k in range(layers):
+        z = -200.0 - 200.0 * k
+        # Each wall fills the frustum slab at its depth (fovy 45°, the
+        # −20° pitch shifts the view centre down) with a 1.4× margin.
+        dist = 10.0 - z
+        hh = dist * np.tan(np.deg2rad(22.5)) * 1.4
+        hw = hh * (1920.0 / 1080.0)
+        cy = 5.0 - dist * np.tan(np.deg2rad(20.0))
+        p, u, n, t = _grid_quads((-hw, cy + hh, z), (2 * hw, 0, 0),
+                                 (0, -2 * hh, 0), nu, nv, vbase)
+        positions.append(p)
+        uvs.append(u)
+        normals.append(n)
+        tris.append(t)
+        mats.append(np.full(len(t), k % layers, np.int32))
+        vbase += len(p)
+    _add_patches(b, positions, uvs, normals, tris, mats)
+    return b.build(device)
+
+
+def standin_parts(target_tris: int = 262_000, num_materials: int = 25,
+                  tex_size: int = 256, seed: int = 0):
+    """The stand-in's host arrays: (textures, patches).  ``textures``: one
+    MaterialTextures per material; ``patches``: per quad patch (positions,
+    uvs, normals, triangles with scene-wide vertex indices, material ids
+    per triangle).  ``sponza_standin_scene`` packs them; a writer can put
+    the same geometry into an OBJ file."""
+    rng = np.random.RandomState(seed)
+    textures = []
     for i in range(num_materials):
         col_a = rng.randint(60, 255, 3)
         col_b = (col_a * rng.uniform(0.3, 0.8)).astype(np.int64)
-        b.textures.append(MaterialTextures(
+        textures.append(MaterialTextures(
             name=f"standin_{i}",
             diffuse=_checker_texture(tex_size, col_a, col_b,
                                      tiles=int(rng.choice([4, 8, 16]))),
@@ -112,29 +226,25 @@ def sponza_standin_scene(target_tris: int = 262_000, num_materials: int = 25,
     nu = max(1, int(np.sqrt(per_patch)))
     nv = max(1, per_patch // nu)
 
-    positions, uvs, normals, tris, mats = [], [], [], [], []
+    patches = []
     vbase = 0
     for i, (o, du, dv) in enumerate(blocks):
         p, u, n, t = _grid_quads(o, du, dv, nu, nv, vbase)
-        positions.append(p)
-        uvs.append(u)
-        normals.append(n)
-        tris.append(t)
-        mats.append(np.full(len(t), i % num_materials, np.int32))
+        patches.append((p, u, n, t,
+                        np.full(len(t), i % num_materials, np.int32)))
         vbase += len(p)
+    return textures, patches
 
-    pos = np.concatenate(positions)
-    tex = np.concatenate(uvs)
-    idx = np.concatenate(tris)
-    t, bt = compute_tbn(pos, tex, idx)
-    b.positions.append(pos)
-    b.uvs.append(tex)
-    b.normals.append(np.concatenate(normals))
-    b.tangents.append(t)
-    b.bitangents.append(bt)
-    b.vertex_object.append(np.zeros(len(pos), np.int32))
-    b.tri_idx.append(idx)
-    b.tri_mat.append(np.concatenate(mats))
-    b.object_transforms.append(
-        (np.zeros(3, np.float32), np.zeros(4, np.float32)))
+
+def sponza_standin_scene(target_tris: int = 262_000, num_materials: int = 25,
+                         tex_size: int = 256, seed: int = 0,
+                         device="cuda") -> Scene:
+    """Courtyard with floor, ceiling, walls and 24 columns: about
+    ``target_tris`` triangles over ``num_materials`` checker/noise-normal
+    materials.  Deterministic in ``seed``."""
+    b = SceneBuilder()
+    textures, patches = standin_parts(target_tris, num_materials, tex_size,
+                                      seed)
+    b.textures.extend(textures)
+    _add_patches(b, *zip(*patches))
     return b.build(device)

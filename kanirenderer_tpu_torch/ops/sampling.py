@@ -8,6 +8,11 @@
   form one 120-lane row, so a pixel's bilinear footprint is one gathered
   row.  The diffuse lanes hold round(sqrt(linear)·255) (decode v²/65025),
   the normal lanes raw u8 (decode v/255).
+* ``sample_materials_blocks`` — the same filtering from the separate
+  tables of a scene with a normal map deeper than 8 bits
+  (``Scene.tex_diffuse`` / ``Scene.tex_normal``): 6×4-texel blocks whose
+  Repeat-wrapped 7×5 windows × RGB form one 105-lane row per texture, the
+  normal table at its source depth (u16 or f32).
 * ``build_shadow_table`` / ``sample_shadow_pcf`` — 3×3 PCF of comparison
   taps (reference src/lib.rs:760-767, src/shader.wgsl:140-159) from a
   table whose row b is the clamp-padded 11×11 window of 8×8 shadow block
@@ -36,6 +41,14 @@ CMB_BY = 4
 CMB_WINX = CMB_BX + 1
 CMB_WINY = CMB_BY + 1
 CMB_LANES = CMB_WINX * CMB_WINY * 6    # 120
+
+
+# Separate-table geometry: 6×4-texel blocks, 7×5 window × RGB.
+MAT_BX = 6
+MAT_BY = 4
+MAT_WINX = MAT_BX + 1
+MAT_WINY = MAT_BY + 1
+MAT_LANES = MAT_WINX * MAT_WINY * 3    # 105
 
 
 def build_combined_blocks(diffuse_u8: np.ndarray,
@@ -98,6 +111,76 @@ def sample_materials_combined(tex_combined: Tensor, blk_base: Tensor,
     out6 = s.sum(dim=(1, 2))                                 # (N, 6)
     out6 = out6.T.reshape((6,) + u.shape)
     return out6[:3], out6[3:]
+
+
+def build_material_blocks(tex: np.ndarray) -> np.ndarray:
+    """(h, w, 3) texture of any dtype → (ceil(h/4)·ceil(w/6), 128) rows of
+    Repeat-wrapped 7×5 windows, lanes (row, col, channel)
+    channel-innermost, in the texture's dtype.  Host-side, once per
+    texture at scene build."""
+    h, w = tex.shape[:2]
+    bw = -(-w // MAT_BX)
+    bh = -(-h // MAT_BY)
+    ys = (np.arange(bh)[:, None] * MAT_BY + np.arange(MAT_WINY)[None]) % h
+    xs = (np.arange(bw)[:, None] * MAT_BX + np.arange(MAT_WINX)[None]) % w
+    win = tex[ys[:, None, :, None], xs[None, :, None, :]]  # (bh,bw,5,7,3)
+    rows = win.reshape(bh * bw, MAT_LANES)
+    return np.pad(rows, ((0, 0), (0, 128 - MAT_LANES)))
+
+
+def _gather_f32(table: Tensor, row: Tensor) -> Tensor:
+    """Rows of a u8, u16 or f32 table as float32.  A u16 table is gathered
+    through its int16 view, which every device indexes, and the wrapped
+    negatives are brought back to 0..65535."""
+    if table.dtype == torch.uint16:
+        x = table.view(torch.int16).index_select(0, row).to(torch.float32)
+        return torch.where(x < 0, x + 65536.0, x)
+    return table.index_select(0, row).to(torch.float32)
+
+
+def sample_materials_blocks(tex_diffuse: Tensor, tex_normal: Tensor,
+                            blk_base: Tensor, blk_w: Tensor, tw: Tensor,
+                            th: Tensor, u: Tensor,
+                            v: Tensor) -> tuple[Tensor, Tensor]:
+    """``sample_materials_combined`` from the separate tables: one row
+    gather per texture.  The table's dtype selects the decode: the u8
+    diffuse table is sqrt-encoded (v²/65025); a normal table is raw unorm
+    (u8 /255, u16 /65535) or float."""
+    dev = u.device
+    tx = u * tw.to(torch.float32) - 0.5
+    ty = v * th.to(torch.float32) - 0.5
+    x0 = torch.floor(tx)
+    y0 = torch.floor(ty)
+    fx = tx - x0
+    fy = ty - y0
+    x0i = torch.remainder(x0.to(torch.int32), tw)
+    y0i = torch.remainder(y0.to(torch.int32), th)
+    bx = torch.div(x0i, MAT_BX, rounding_mode="floor")
+    by = torch.div(y0i, MAT_BY, rounding_mode="floor")
+    lx = x0i - bx * MAT_BX
+    ly = y0i - by * MAT_BY
+    row = (blk_base + by * blk_w + bx).reshape(-1)
+
+    ax = (lx.to(torch.float32) + fx).reshape(-1)
+    ay = (ly.to(torch.float32) + fy).reshape(-1)
+    cols = torch.arange(MAT_WINX, dtype=torch.float32, device=dev)
+    rows = torch.arange(MAT_WINY, dtype=torch.float32, device=dev)
+    wgt = _hat(rows, ay)[:, :, None] * _hat(cols, ax)[:, None, :]  # (N,5,7)
+
+    def tex(table, sqrt_encoded):
+        w32 = _gather_f32(table, row)[:, :MAT_LANES] \
+            .reshape(-1, MAT_WINY, MAT_WINX, 3)
+        if table.dtype == torch.uint8 and sqrt_encoded:
+            s = (w32 * w32) * (wgt * (1.0 / 65025.0))[..., None]
+        elif table.dtype == torch.uint8:
+            s = w32 * (wgt * (1.0 / 255.0))[..., None]
+        elif table.dtype == torch.uint16:
+            s = w32 * (wgt * (1.0 / 65535.0))[..., None]
+        else:
+            s = w32 * wgt[..., None]
+        return s.sum(dim=(1, 2)).T.reshape((3,) + u.shape)
+
+    return tex(tex_diffuse, True), tex(tex_normal, False)
 
 
 def build_shadow_table(shadow_map: Tensor) -> Tensor:

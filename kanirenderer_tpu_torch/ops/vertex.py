@@ -1,10 +1,15 @@
-"""Per-frame vertex stage and triangle setup, corner-major (PyTorch
-counterpart of ``run_vertex_stage_corners`` / ``triangle_setup_corners`` in
+"""Per-frame vertex stage and triangle setup (PyTorch counterpart of
 ``kanirenderer_tpu/ops/vertex.py``).
 
-The scene stores every triangle's three corners expanded (Scene.corner_*),
+Corner-major (``run_vertex_stage_corners`` / ``triangle_setup_corners``):
+the scene stores every triangle's three corners expanded (Scene.corner_*),
 so the vertex math runs over (corner, T) planes with no gathers; the corner
-axis is a leading batch dimension of size 3.
+axis is a leading batch dimension of size 3.  Vertex-major
+(``run_vertex_stage`` / ``triangle_setup``), for scenes built without
+corner planes: the same math once per shared vertex, then one gather of
+the three corners' clip rows.  Both evaluate every product and sum in the
+same order, so a scene that has both forms gets the same setup rows from
+either.
 
 Varying layout (17 planes per corner):
   0:3   tangent_position (TBN rows · world_pos)
@@ -49,9 +54,48 @@ class TriangleSetup(NamedTuple):
     zmin: Tensor      # (T,) f32 — lower bound of covered-pixel depth
 
 
+class VertexOutputs(NamedTuple):
+    clip: Tensor        # (V, 4) camera clip positions
+    varyings: Tensor    # (V, USED)
+    light_clip: Tensor  # (V, 4) directional-light clip positions
+
+
 def _norm_planes(x, y, z):
     inv = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-30))
     return x * inv, y * inv, z * inv
+
+
+def _vertex_math(mm, nm, pos, tangent, bitangent, normal, uv, view_proj,
+                 light_view_proj):
+    """The vertex stage on planes of any common shape: ``mm``/``nm`` the 16
+    and 9 matrix-entry planes, the attributes as lists of component
+    planes.  Returns (clip, varyings, light_clip), stacked along dim −2."""
+    px, py, pz = pos
+    wx = mm[0] * px + mm[1] * py + mm[2] * pz + mm[3]
+    wy = mm[4] * px + mm[5] * py + mm[6] * pz + mm[7]
+    wz = mm[8] * px + mm[9] * py + mm[10] * pz + mm[11]
+
+    def nmul(v0, v1, v2):
+        a = nm[0] * v0 + nm[1] * v1 + nm[2] * v2
+        b = nm[3] * v0 + nm[4] * v1 + nm[5] * v2
+        c = nm[6] * v0 + nm[7] * v1 + nm[8] * v2
+        return _norm_planes(a, b, c)
+
+    tx, ty, tz = nmul(*tangent)
+    bx, by, bz = nmul(*bitangent)
+    nx, ny, nz = nmul(*normal)
+
+    def mat_apply(m):
+        return torch.stack([m[i, 0] * wx + m[i, 1] * wy + m[i, 2] * wz
+                            + m[i, 3] for i in range(4)], dim=-2)
+
+    tp0 = tx * wx + ty * wy + tz * wz
+    tp1 = bx * wx + by * wy + bz * wz
+    tp2 = nx * wx + ny * wy + nz * wz
+    u, v = uv
+    varyings = torch.stack([tp0, tp1, tp2, tx, ty, tz, bx, by, bz,
+                            nx, ny, nz, wx, wy, wz, u, v], dim=-2)
+    return mat_apply(view_proj), varyings, mat_apply(light_view_proj)
 
 
 def run_vertex_stage_corners(scene, object_model: Tensor,
@@ -67,44 +111,54 @@ def run_vertex_stage_corners(scene, object_model: Tensor,
         a = corner_attr.reshape(3, n, -1)
         return [a[:, i] for i in range(n)]
 
-    px, py, pz = planes(scene.corner_pos, 3)
-    wx = mm[0] * px + mm[1] * py + mm[2] * pz + mm[3]
-    wy = mm[4] * px + mm[5] * py + mm[6] * pz + mm[7]
-    wz = mm[8] * px + mm[9] * py + mm[10] * pz + mm[11]
-
-    def nmul(v0, v1, v2):
-        a = nm[0] * v0 + nm[1] * v1 + nm[2] * v2
-        b = nm[3] * v0 + nm[4] * v1 + nm[5] * v2
-        c = nm[6] * v0 + nm[7] * v1 + nm[8] * v2
-        return _norm_planes(a, b, c)
-
-    tx, ty, tz = nmul(*planes(scene.corner_tangent, 3))
-    bx, by, bz = nmul(*planes(scene.corner_bitangent, 3))
-    nx, ny, nz = nmul(*planes(scene.corner_normal, 3))
-
-    def mat_apply(m):
-        return torch.stack([m[i, 0] * wx + m[i, 1] * wy + m[i, 2] * wz
-                            + m[i, 3] for i in range(4)], dim=1)
-
-    tp0 = tx * wx + ty * wy + tz * wz
-    tp1 = bx * wx + by * wy + bz * wz
-    tp2 = nx * wx + ny * wy + nz * wz
-    u, v = planes(scene.corner_uv, 2)
-    varyings = torch.stack([tp0, tp1, tp2, tx, ty, tz, bx, by, bz,
-                            nx, ny, nz, wx, wy, wz, u, v], dim=1)
-    return CornerOutputs(clip=mat_apply(view_proj), varyings=varyings,
-                         light_clip=mat_apply(light_view_proj))
+    return CornerOutputs(*_vertex_math(
+        mm, nm, planes(scene.corner_pos, 3), planes(scene.corner_tangent, 3),
+        planes(scene.corner_bitangent, 3), planes(scene.corner_normal, 3),
+        planes(scene.corner_uv, 2), view_proj, light_view_proj))
 
 
-def triangle_setup_corners(clip_c: Tensor, tri_valid: Tensor, width: int,
-                           height: int, cull_backfaces: bool,
+def run_vertex_stage(scene, object_model: Tensor, object_normal: Tensor,
+                     view_proj: Tensor,
+                     light_view_proj: Tensor) -> VertexOutputs:
+    """The vertex stage once per scene vertex (vertex-major), for scenes
+    without corner planes."""
+    O = object_model.shape[0]
+    vo = scene.vertex_object.to(torch.int64)
+    mm = object_model.reshape(O, 16).index_select(0, vo).T
+    nm = object_normal.reshape(O, 9).index_select(0, vo).T
+    clip, varyings, light_clip = _vertex_math(
+        mm, nm, scene.position.T, scene.tangent.T, scene.bitangent.T,
+        scene.normal.T, scene.uv.T, view_proj, light_view_proj)
+    return VertexOutputs(clip=clip.T.contiguous(),
+                         varyings=varyings.T.contiguous(),
+                         light_clip=light_clip.T.contiguous())
+
+
+def triangle_setup(clip: Tensor, tri_idx: Tensor, tri_valid: Tensor, width,
+                   height, cull_backfaces: bool,
+                   depth_bias_constant: float = 0.0,
+                   depth_bias_slope: float = 0.0):
+    """``triangle_setup_corners`` from vertex-major clip rows (V, 4): one
+    gather of the three corners' rows, then the same setup.  Returns
+    (TriangleSetup, planes)."""
+    c = clip[tri_idx.to(torch.int64)]            # (T, 3, 4)
+    x, y, z, w = (c[:, :, i].T for i in range(4))
+    return _setup_from_corner_planes(
+        x, y, z, w, tri_valid, width, height, cull_backfaces,
+        depth_bias_constant, depth_bias_slope)
+
+
+def triangle_setup_corners(clip_c: Tensor, tri_valid: Tensor, width,
+                           height, cull_backfaces: bool,
                            depth_bias_constant: float = 0.0,
                            depth_bias_slope: float = 0.0):
     """Edge/depth rows from corner-major clip planes ``clip_c`` (3, 4, T).
 
     ``cull_backfaces``: FrontFace::Ccw + cull Back (reference
     src/lib.rs:193-194).  The depth bias is the shadow pipeline's
-    constant/slope state (reference src/lib.rs:896-900).  Returns
+    constant/slope state (reference src/lib.rs:896-900).  ``width`` and
+    ``height`` are the view's extent in pixels, ints or floats: after a
+    resize the view is smaller than the raster it is drawn into.  Returns
     (TriangleSetup, planes) with planes the (16, T) setup columns."""
     return _setup_from_corner_planes(
         clip_c[:, 0], clip_c[:, 1], clip_c[:, 2], clip_c[:, 3], tri_valid,

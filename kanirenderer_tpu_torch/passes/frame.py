@@ -1,15 +1,20 @@
 """render_frame — the frame pipeline of every render mode (PyTorch
 counterpart of ``render_band``/``render_frame`` in
-``kanirenderer_tpu/passes/frame.py``, without row bands, cached shadow maps
-or tables, and resize-without-recompile).
+``kanirenderer_tpu/passes/frame.py``, without row bands).
 
-Per frame, as the reference renders it (src/lib.rs:1707-1914), with the
-shadow map re-rasterized inside every frame where the mode has one:
+Per frame, as the reference renders it (src/lib.rs:1707-1914):
 
-  1. corner-major vertex stage;
-  2. LIT_SHADOW and DEBUG: light-space triangle setup, binning, the K1
-     shadow raster (ops/raster_cuda.rasterize_depth); the other modes emit
-     an all-ones map;
+  1. vertex stage: corner-major where the scene carries corner planes,
+     vertex-major otherwise;
+  2. LIT_SHADOW and DEBUG: the shadow map.  Fresh by default: light-space
+     triangle setup, binning, the K1 shadow raster
+     (ops/raster_cuda.rasterize_depth).  The caller may instead hand in
+     what does not depend on the camera and so survives from frame to
+     frame: the light-space setup and bins (``shadow_geom``, the map is
+     still rasterized), the map (``shadow_map``) or the PCF table built
+     from it (``shadow_table``).  ``render_shadow_geometry`` and
+     ``render_shadow_map`` produce them.  The other modes emit an all-ones
+     map;
   3. camera triangle setup (no back-face culling in WIREFRAME), triangle
      records, binning;
   4. the fused raster + interpolation, K2 (ops/raster_cuda.rasterize_pixels)
@@ -22,9 +27,16 @@ shadow map re-rasterized inside every frame where the mode has one:
      ``present_scale`` box downscale and the ``output_u8`` store (u8 for
      LDR, float16 for HDR).
 
+After a window resize the view is smaller than the raster: ``view_wh``
+gives the view's width and height, which set the projection's aspect and
+the extent the triangle setup clamps to, while the kernels keep the
+``cfg.width × cfg.height`` grid and the caller crops (runtime/loop.py).
+
 All work runs on the scene's device except the uniform math, which runs
-on the host (``frame_uniforms``); that round trip and the binning calls
-are the frame's own device-to-host synchronisations.
+on the host (``frame_uniforms_host``).  ``frame_uniforms`` reads the pose
+back from the device for it; a caller that holds the pose on the host
+computes the matrices itself and passes them as ``uniforms``.  That read
+and the binning calls are the frame's own device-to-host synchronisations.
 ``linearize_depth`` (depth picking) lives with the overlays that share it.
 """
 
@@ -32,6 +44,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from kanirenderer_tpu_torch.core import math3d
@@ -42,10 +55,14 @@ from kanirenderer_tpu_torch.core.types import (DebugTexture, FrameState,
 from kanirenderer_tpu_torch.ops import raster_cuda
 from kanirenderer_tpu_torch.ops.binning import ChunkBins, bin_tiles
 from kanirenderer_tpu_torch.ops.interpolate import (PixelBuffer,
+                                                    build_tri_records,
                                                     build_tri_records_corners)
 from kanirenderer_tpu_torch.ops.sampling import build_shadow_table
 from kanirenderer_tpu_torch.ops.vertex import (CornerOutputs, TriangleSetup,
+                                               VertexOutputs,
+                                               run_vertex_stage,
                                                run_vertex_stage_corners,
+                                               triangle_setup,
                                                triangle_setup_corners)
 from kanirenderer_tpu_torch.passes import overlay
 from kanirenderer_tpu_torch.passes.overlay import linearize_depth  # noqa: F401
@@ -59,16 +76,27 @@ SHADOW_MODES = (RenderMode.LIT_SHADOW, RenderMode.DEBUG)
 class FrameOutputs(NamedTuple):
     image: Tensor   # (H/p, W/p, 3) encoded: f32, or u8 / f16 (output_u8)
     depth: Tensor   # (H, W) f32 scene depth
-    shadow: Tensor  # (shadow_dim, shadow_dim) f32, all ones without a pass
+    shadow: Tensor  # (shadow_dim, shadow_dim) f32 map of this frame: all
+    #   ones without a pass, zeros when ``use_cached_shadow`` reused the
+    #   caller's; (1, 1) zeros when the caller supplied the map or table
     raster_overflow: Tensor  # () i32 chunks dropped by the frame's binnings
+
+
+class ShadowGeometry(NamedTuple):
+    """The light-space triangle setup and its bins: what K1 reads.  It
+    depends on the sun and the geometry, not on the camera."""
+
+    setup: TriangleSetup
+    bins: ChunkBins
 
 
 class Geometry(NamedTuple):
     """Per-frame geometry: the kernels' inputs and the light transform.
-    The shadow fields are None in modes without a shadow pass."""
+    The shadow fields are None where the frame builds no light-space
+    setup."""
 
     light_vp: Tensor
-    vout: CornerOutputs
+    vout: CornerOutputs | VertexOutputs
     shadow_setup: TriangleSetup | None
     shadow_bins: ChunkBins | None
     setup: TriangleSetup
@@ -76,75 +104,152 @@ class Geometry(NamedTuple):
     bins: ChunkBins
 
 
-def _check_supported(cfg: RenderConfig) -> None:
-    if cfg.cache_shadow_map:
-        raise NotImplementedError(
-            "cached shadow maps are not ported: the port renders a fresh "
-            "shadow map in every frame (cache_shadow_map=False)")
-    if cfg.present_scale < 1:
-        raise ValueError("present_scale must be at least 1")
+def frame_uniforms_host(position, yaw, pitch, sun_direction, sun_distance,
+                        shadow_scene_size, cfg: RenderConfig,
+                        aspect: float | None = None) -> Tensor:
+    """(2, 4, 4) [view_proj, light_vp] on the CPU from host values: the
+    per-frame uniform math (≈ State::update, src/lib.rs:1382-1704),
+    computed on the host as the reference computes its uniforms.  Every
+    device then rasterizes from the same matrix bits: computed on the card,
+    trigonometry and the 4×4 products round differently in the last place,
+    which flips the winner of near-coplanar surfaces."""
+    def f32(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    fovy = torch.deg2rad(torch.tensor(cfg.fovy_deg, dtype=torch.float32))
+    proj = math3d.perspective(fovy, cfg.aspect if aspect is None else aspect,
+                              cfg.znear, cfg.zfar)
+    view_proj = proj @ math3d.camera_view_matrix(f32(position), f32(yaw),
+                                                 f32(pitch))
+    light_vp = math3d.directional_light_view_projection(
+        f32(sun_direction), f32(sun_distance), f32(shadow_scene_size))
+    return torch.stack([view_proj, light_vp])
 
 
 def frame_uniforms(state: FrameState, cfg: RenderConfig,
-                   device: torch.device) -> tuple[Tensor, Tensor]:
-    """(view_proj, light_vp) on ``device``: the per-frame uniform math
-    (≈ State::update, src/lib.rs:1382-1704), computed on the host as the
-    reference computes its uniforms, from one copy of the camera pose and
-    the sun, and uploaded in one copy.  Every device then rasterizes from
-    the same matrix bits: computed on the card, trigonometry and the 4×4
-    products round differently in the last place, which flips the winner
-    of near-coplanar surfaces."""
+                   device: torch.device,
+                   aspect: float | None = None) -> tuple[Tensor, Tensor]:
+    """(view_proj, light_vp) on ``device`` from a state on any device: one
+    copy of the camera pose and the sun to the host,
+    ``frame_uniforms_host``, one copy back."""
     cam, sun = state.camera, state.lights.directional
     host = torch.cat([t.reshape(-1) for t in (
         cam.position, cam.yaw, cam.pitch, sun.direction, sun.distance,
-        sun.shadow_scene_size)]).cpu()
-    fovy = torch.deg2rad(torch.tensor(cfg.fovy_deg, dtype=torch.float32))
-    proj = math3d.perspective(fovy, cfg.aspect, cfg.znear, cfg.zfar)
-    view_proj = proj @ math3d.camera_view_matrix(host[0:3], host[3], host[4])
-    light_vp = math3d.directional_light_view_projection(host[5:8], host[8],
-                                                        host[9])
-    both = torch.stack([view_proj, light_vp]).to(device)
+        sun.shadow_scene_size)]).cpu().numpy()
+    both = frame_uniforms_host(host[0:3], host[3], host[4], host[5:8],
+                               host[8], host[9], cfg, aspect).to(device)
     return both[0], both[1]
 
 
-def frame_geometry(scene: Scene, state: FrameState,
-                   cfg: RenderConfig) -> Geometry:
+def view_extent(cfg: RenderConfig, view_wh):
+    """(view width, view height, aspect): the raster's own, or the
+    caller's smaller view with its aspect as a float32 quotient."""
+    if view_wh is None:
+        return cfg.width, cfg.height, None
+    vw, vh = float(view_wh[0]), float(view_wh[1])
+    return vw, vh, float(np.float32(vw) / np.float32(vh))
+
+
+def _vertex_stage(scene: Scene, state: FrameState, view_proj: Tensor,
+                  light_vp: Tensor):
+    stage = run_vertex_stage_corners if scene.corner_pos.shape[0] > 0 \
+        else run_vertex_stage
+    return stage(scene, state.object_model, state.object_normal, view_proj,
+                 light_vp)
+
+
+def _setup(scene: Scene, clip: Tensor, width, height, cull_backfaces: bool,
+           bias_constant: float = 0.0, bias_slope: float = 0.0):
+    """(TriangleSetup, planes) from either form of clip coordinates."""
+    if clip.dim() == 3:     # corner-major (3, 4, T)
+        return triangle_setup_corners(clip, scene.tri_valid, width, height,
+                                      cull_backfaces, bias_constant,
+                                      bias_slope)
+    return triangle_setup(clip, scene.tri_idx, scene.tri_valid, width,
+                          height, cull_backfaces, bias_constant, bias_slope)
+
+
+def _shadow_geometry(scene: Scene, light_clip: Tensor,
+                     cfg: RenderConfig) -> ShadowGeometry:
+    D = cfg.shadow_dim
+    st, _ = _setup(scene, light_clip, D, D, False, cfg.shadow_bias_constant,
+                   cfg.shadow_bias_slope)
+    return ShadowGeometry(st, bin_tiles(st.bbox, D, D, cfg.tile_w,
+                                        cfg.shadow_tile_h,
+                                        cfg.shadow_chunks_per_tile))
+
+
+def render_shadow_geometry(scene: Scene, state: FrameState,
+                           config: RenderConfig,
+                           light_vp: Tensor | None = None) -> ShadowGeometry:
+    """The light-space setup and bins of the shadow pass, for
+    ``render_frame(shadow_geom=·)``: the map is still rasterized in every
+    frame, but the light vertex transform, setup and binning drop out.
+
+    It takes the path the frame itself takes for this scene (corner-major
+    where the scene has corner planes), through the same functions, so the
+    rows are the frame's own bit for bit.  ``light_vp``: the light's
+    view-projection on the scene's device, where the caller has it;
+    otherwise it is computed from ``state``."""
+    if light_vp is None:
+        light_vp = frame_uniforms(state, config, scene.device)[1]
+    eye = torch.eye(4, dtype=torch.float32, device=scene.device)
+    vout = _vertex_stage(scene, state, eye, light_vp)
+    return _shadow_geometry(scene, vout.light_clip, config)
+
+
+def render_shadow_map(scene: Scene, state: FrameState, config: RenderConfig,
+                      light_vp: Tensor | None = None) -> Tensor:
+    """Standalone shadow-map pass (reference src/lib.rs:1721-1751), so that
+    a host loop can keep the map while the sun and the geometry stand
+    still: the camera does not affect it.  The map equals the one a fresh
+    frame of the same state rasterizes, bit for bit."""
+    geom = render_shadow_geometry(scene, state, config, light_vp)
+    return raster_cuda.rasterize_depth(geom.setup.setup, geom.setup.bbox,
+                                       geom.bins, config.shadow_dim)
+
+
+def frame_geometry(scene: Scene, state: FrameState, cfg: RenderConfig,
+                   view_wh=None, uniforms=None,
+                   light_space: bool | None = None) -> Geometry:
     """Stages 1-3 without the rasters: uniforms, vertex stage, the setups
-    and bins the mode needs."""
-    W, H, D = cfg.width, cfg.height, cfg.shadow_dim
-    view_proj, light_vp = frame_uniforms(state, cfg, scene.device)
-    vout = run_vertex_stage_corners(scene, state.object_model,
-                                    state.object_normal, view_proj, light_vp)
-    sh_st = sh_bins = None
-    if cfg.mode in SHADOW_MODES:
-        sh_st, _ = triangle_setup_corners(
-            vout.light_clip, scene.tri_valid, D, D, cull_backfaces=False,
-            depth_bias_constant=cfg.shadow_bias_constant,
-            depth_bias_slope=cfg.shadow_bias_slope)
-        sh_bins = bin_tiles(sh_st.bbox, D, D, cfg.tile_w, cfg.shadow_tile_h,
-                            cfg.shadow_chunks_per_tile)
-    st, planes = triangle_setup_corners(
-        vout.clip, scene.tri_valid, W, H,
-        cull_backfaces=cfg.mode != RenderMode.WIREFRAME)
-    records = build_tri_records_corners(vout.varyings, planes,
-                                        scene.tri_extra)
-    bins = bin_tiles(st.bbox, W, H, cfg.tile_w, cfg.tile_h,
+    and bins.  ``light_space``: whether to build the light-space setup and
+    bins; by default where the mode has a shadow pass."""
+    vw, vh, aspect = view_extent(cfg, view_wh)
+    view_proj, light_vp = uniforms if uniforms is not None \
+        else frame_uniforms(state, cfg, scene.device, aspect)
+    vout = _vertex_stage(scene, state, view_proj, light_vp)
+    if light_space is None:
+        light_space = cfg.mode in SHADOW_MODES
+    sh = _shadow_geometry(scene, vout.light_clip, cfg) if light_space \
+        else ShadowGeometry(None, None)
+    st, planes = _setup(scene, vout.clip, vw, vh,
+                        cull_backfaces=cfg.mode != RenderMode.WIREFRAME)
+    if isinstance(vout, CornerOutputs):
+        records = build_tri_records_corners(vout.varyings, planes,
+                                            scene.tri_extra)
+    else:
+        records = build_tri_records(
+            scene.tri_idx, scene.tri_mat, vout.varyings, scene.mat_blk_base,
+            scene.mat_blk_w, scene.mat_tex_size, setup=st.setup,
+            extra=scene.tri_extra)
+    bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w, cfg.tile_h,
                      cfg.max_chunks_per_tile)
-    return Geometry(light_vp=light_vp, vout=vout,
-                    shadow_setup=sh_st, shadow_bins=sh_bins, setup=st,
-                    records=records, bins=bins)
+    return Geometry(light_vp=light_vp, vout=vout, shadow_setup=sh.setup,
+                    shadow_bins=sh.bins, setup=st, records=records,
+                    bins=bins)
 
 
 def _shade(scene: Scene, state: FrameState, cfg: RenderConfig,
-           pix: PixelBuffer, shadow_map: Tensor, light_vp: Tensor) -> Tensor:
-    """(3, H, W) linear colour of the mode (JAX render_band :391-422)."""
+           pix: PixelBuffer, table: Tensor | None, light_vp: Tensor) -> Tensor:
+    """(3, H, W) linear colour of the mode (JAX render_band :391-422);
+    ``table`` is the PCF table of the shadow modes, None in the others."""
     mode, D = cfg.mode, cfg.shadow_dim
     cam_pos = state.camera.position
     if mode == RenderMode.UNLIT:
         return forward.shade_unlit(scene, pix)
     if mode == RenderMode.WIREFRAME:
         return forward.shade_wireframe(pix)
-    table = build_shadow_table(shadow_map) if mode in SHADOW_MODES else None
     if cfg.deferred:
         gbuf = deferred.write_gbuffer(scene, pix, cam_pos, light_vp)
         return deferred.deferred_lighting(gbuf, state.lights, table, cfg.hdr,
@@ -189,37 +294,76 @@ def _surface(image: Tensor, state: FrameState, cfg: RenderConfig,
     return quantize(downscale(image)).contiguous()
 
 
-def render_frame(scene: Scene, state: FrameState,
-                 config: RenderConfig) -> FrameOutputs:
-    """Render one frame of ``config.mode`` with a fresh shadow map where the
-    mode has one."""
+def render_frame(scene: Scene, state: FrameState, config: RenderConfig,
+                 shadow_map: Tensor | None = None,
+                 use_cached_shadow: bool | None = None,
+                 shadow_table: Tensor | None = None,
+                 shadow_geom: ShadowGeometry | None = None,
+                 view_wh=None, uniforms=None) -> FrameOutputs:
+    """Render one frame of ``config.mode``.
+
+    The shadow map of LIT_SHADOW and DEBUG is rasterized in the frame
+    unless the caller supplies it: ``shadow_map`` (from
+    ``render_shadow_map``), or for LIT_SHADOW ``shadow_table``
+    (``build_shadow_table`` of it), which also spares the table's rebuild.
+    ``use_cached_shadow`` (with ``shadow_map``) chooses per call: True
+    reuses the given map, False rasterizes a fresh one and emits it.
+    ``shadow_geom`` (from ``render_shadow_geometry``) feeds the fresh
+    raster its cached inputs.  ``view_wh``: the (width, height) of a view
+    smaller than the raster.  ``uniforms``: (view_proj, light_vp) on the
+    scene's device, computed by the caller with ``frame_uniforms_host``
+    for this state and view; without them the frame reads the pose back
+    from the device."""
     cfg = config
-    _check_supported(cfg)
-    g = frame_geometry(scene, state, cfg)
-    D = cfg.shadow_dim
+    if cfg.present_scale < 1:
+        raise ValueError("present_scale must be at least 1")
+    mode, D, dev = cfg.mode, cfg.shadow_dim, scene.device
+    needs_shadow = mode in SHADOW_MODES
+    if shadow_table is not None and (
+            mode != RenderMode.LIT_SHADOW or shadow_map is not None
+            or use_cached_shadow is not None):
+        raise ValueError(
+            "shadow_table is only valid for LIT_SHADOW without a raw map")
+    if use_cached_shadow is not None and shadow_map is None:
+        raise ValueError("use_cached_shadow requires a shadow_map")
+    fresh = needs_shadow and shadow_table is None and (
+        shadow_map is None or use_cached_shadow is False)
+
+    g = frame_geometry(scene, state, cfg, view_wh, uniforms,
+                       light_space=fresh and shadow_geom is None)
+    overflow = g.bins.overflow
 
     # shadow pass (src/lib.rs:1721-1751)
-    overflow = g.bins.overflow
-    if g.shadow_setup is not None:
-        shadow_map = raster_cuda.rasterize_depth(
-            g.shadow_setup.setup, g.shadow_setup.bbox, g.shadow_bins, D)
-        overflow = overflow + g.shadow_bins.overflow
+    small = torch.zeros((1, 1), dtype=torch.float32, device=dev)
+    if not needs_shadow:
+        shadow_map = shadow_out = torch.ones((D, D), dtype=torch.float32,
+                                             device=dev)
+    elif fresh:
+        sh = shadow_geom if shadow_geom is not None \
+            else ShadowGeometry(g.shadow_setup, g.shadow_bins)
+        shadow_map = shadow_out = raster_cuda.rasterize_depth(
+            sh.setup.setup, sh.setup.bbox, sh.bins, D)
+        overflow = overflow + sh.bins.overflow
+    elif use_cached_shadow:
+        shadow_out = torch.zeros((D, D), dtype=torch.float32, device=dev)
     else:
-        shadow_map = torch.ones((D, D), dtype=torch.float32,
-                                device=scene.device)
+        shadow_out = small   # the caller holds the map or table it gave
 
     # main raster + varying interpolation
     pix = raster_cuda.rasterize_pixels(
         g.records, g.setup.setup, g.setup.bbox, g.bins, cfg.width,
         cfg.height,
-        wireframe=cfg.mode == RenderMode.WIREFRAME,
+        wireframe=mode == RenderMode.WIREFRAME,
         wire_thresh=cfg.wire_thresh_px)
 
-    color = _shade(scene, state, cfg, pix, shadow_map, g.light_vp)
+    table = None
+    if needs_shadow:
+        table = shadow_table if shadow_table is not None \
+            else build_shadow_table(shadow_map)
+    color = _shade(scene, state, cfg, pix, table, g.light_vp)
     clear = torch.tensor(cfg.clear_color, dtype=torch.float32,
-                         device=scene.device)[:, None, None]
+                         device=dev)[:, None, None]
     image = torch.where(pix.mask[None], color, clear)
     return FrameOutputs(image=_surface(image, state, cfg, pix.z, shadow_map),
-                        depth=pix.z, shadow=shadow_map,
+                        depth=pix.z, shadow=shadow_out,
                         raster_overflow=overflow)
-

@@ -19,7 +19,8 @@ import torch
 from kanirenderer_tpu_torch.core.color import aces_tonemap, reinhard_tonemap
 from kanirenderer_tpu_torch.core.types import Lights, Scene
 from kanirenderer_tpu_torch.ops.interpolate import PixelBuffer
-from kanirenderer_tpu_torch.ops.sampling import (sample_materials_combined,
+from kanirenderer_tpu_torch.ops.sampling import (sample_materials_blocks,
+                                                 sample_materials_combined,
                                                  sample_shadow_pcf)
 
 Tensor = torch.Tensor
@@ -66,10 +67,17 @@ def _norm3(v: Tensor) -> Tensor:
 
 
 def sample_materials(scene: Scene, pix: PixelBuffer) -> tuple[Tensor, Tensor]:
-    """Per-pixel diffuse (linear RGB) and raw normal-map samples, planar."""
-    return sample_materials_combined(scene.tex_combined, pix.blk_base,
-                                     pix.blk_w, pix.tex_w, pix.tex_h,
-                                     pix.varyings[15], pix.varyings[16])
+    """Per-pixel diffuse (linear RGB) and raw normal-map samples, planar:
+    from the combined table of an all-u8 scene, else from the separate
+    tables that keep a deeper normal map at its source depth."""
+    if scene.tex_combined.shape[0] > 0:
+        return sample_materials_combined(scene.tex_combined, pix.blk_base,
+                                         pix.blk_w, pix.tex_w, pix.tex_h,
+                                         pix.varyings[15], pix.varyings[16])
+    return sample_materials_blocks(scene.tex_diffuse, scene.tex_normal,
+                                   pix.blk_base, pix.blk_w, pix.tex_w,
+                                   pix.tex_h, pix.varyings[15],
+                                   pix.varyings[16])
 
 
 def shade_unlit(scene: Scene, pix: PixelBuffer) -> Tensor:

@@ -23,6 +23,10 @@ from kanirenderer_tpu_torch.core.types import RenderConfig
 
 W, H, D = 256, 192, 256
 
+# The suite runs several workers on one host: keep each worker's PyTorch
+# from taking every core.
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def geometry():

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1, K2, K2w, K3) against their plain PyTorch
-versions, on the card.
+versions, and the interactive loop's launch counts, on the card.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The GPU machine has no
 JAX, so run them without the suite's conftest (which imports JAX):
@@ -9,7 +9,8 @@ JAX, so run them without the suite's conftest (which imports JAX):
 Tolerances: kernel and plain version evaluate every plane in the same
 order without fused multiply-adds, so depth maps, coverage, winners,
 barycentrics and interpolated outputs must be bit-equal (``torch.equal``)
-for every kernel.
+for every kernel.  The loop's steady-state frame (cached PCF table) must
+equal ``render_frame`` with a fresh map, bit for bit.
 """
 
 import numpy as np
@@ -217,3 +218,64 @@ def test_kernels_match_plain_on_adversarial_cases(geometry, which):
     torch.cuda.synchronize()
     assert (k1 < 1.0).any() and (k1 == 1.0).any()
     assert torch.equal(k1, p1)
+
+
+def _loop_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    return sponza_standin_scene(target_tris=6000, num_materials=4,
+                                tex_size=32, device=torch.device("cuda", 0))
+
+
+class _Capture:
+    def __init__(self):
+        self.frames = []
+
+    def present(self, frame):
+        self.frames.append(frame.copy())
+
+    def close(self):
+        pass
+
+
+@pytest.mark.parametrize("cache", [True, False])
+def test_loop_launch_counts(cache):
+    """Steady state: K2 once per frame and K1 once in the run; with
+    cache_shadow_map=False K1 once per frame too; Tab to WIREFRAME
+    launches K2w."""
+    from kanirenderer_tpu_torch.runtime.loop import Events, run_loop
+    scene = _loop_scene()
+    cfg = RenderConfig(width=256, height=192, shadow_dim=256,
+                       cache_shadow_map=cache)
+    rc.reset_launch_counts()
+    events = [Events()] * 5 + [Events(pressed=frozenset(["tab"]))]
+    stats = run_loop(scene, events, config=cfg, sink_kind="null")
+    torch.cuda.synchronize()
+    assert stats["frames"] == 6 and stats["healed"] == 0
+    assert rc.launch_counts == {
+        "rasterize_depth": 1 if cache else 5, "rasterize_pixels": 5,
+        "rasterize_pixels_wireframe": 1, "rasterize_visibility": 0}
+
+
+def test_loop_steady_state_equals_fresh_frame():
+    from kanirenderer_tpu_torch.core.types import default_camera
+    from kanirenderer_tpu_torch.passes.frame import render_frame
+    from kanirenderer_tpu_torch.runtime.loop import Events, run_loop
+    scene = _loop_scene()
+    dev = scene.device
+    cfg = RenderConfig(width=256, height=192, shadow_dim=256, output_u8=True)
+    sink = _Capture()
+    run_loop(scene, [Events()] * 4, config=cfg, sink=sink)
+    state = frame_state(scene, default_camera(device=dev),
+                        default_lights(device=dev))
+    fresh = render_frame(scene, state, cfg.with_(cache_shadow_map=False))
+    want = fresh.image.cpu().numpy()
+    assert want.std() > 5.0
+    for frame in sink.frames[1:]:
+        np.testing.assert_array_equal(frame, want)
+    # a resized view: the presented crop against the exact-size frame
+    sink = _Capture()
+    stats = run_loop(scene, [Events(), Events(resize=(200, 150))],
+                     config=cfg, sink=sink)
+    assert stats["render_size"] == (256, 256)
+    assert sink.frames[1].shape == (150, 200, 3)

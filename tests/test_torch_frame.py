@@ -38,6 +38,10 @@ from kanirenderer_tpu_torch.passes.frame import render_frame
 
 W, H, D = 256, 192, 256
 
+# The suite runs several workers on one host: keep each worker's PyTorch
+# from taking every core.
+torch.set_num_threads(2)
+
 
 def _compiled(fn):
     @functools.wraps(fn)
@@ -176,16 +180,3 @@ def test_flythrough_runs_the_bench_path():
                                   "present_scale2"])
 def test_mode_matches_reference(scenes, monkeypatch, name):
     check_mode(scenes, monkeypatch, name)
-
-
-@pytest.mark.parametrize("kw", [dict(cache_shadow_map=True)])
-def test_unported_modes_raise(kw):
-    """Cached shadow maps (the JAX package's render_shadow_map and cached
-    PCF tables) are not ported."""
-    scene = sponza_standin_scene(target_tris=300, num_materials=1,
-                                 tex_size=8, device="cpu")
-    state = port.frame_state(scene, port.default_camera(device="cpu"),
-                             port.default_lights(device="cpu"))
-    with pytest.raises(NotImplementedError):
-        render_frame(scene, state, port.RenderConfig(width=32, height=32,
-                                                     shadow_dim=32, **kw))

@@ -42,6 +42,10 @@ from kanirenderer_tpu_torch.passes.frame import frame_geometry
 
 W, H, D = 256, 192, 256
 
+# The suite runs several workers on one host: keep each worker's PyTorch
+# from taking every core.
+torch.set_num_threads(2)
+
 
 def _geometry(mode):
     scene = sponza_standin_scene(target_tris=6000, num_materials=4,

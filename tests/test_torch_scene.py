@@ -22,6 +22,11 @@ from kanirenderer_tpu.models import procedural as ref_procedural
 import kanirenderer_tpu_torch as port
 from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
 
+# The suite runs several workers on one host: keep each worker's PyTorch
+# from taking every core.
+torch.set_num_threads(2)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(target_tris=6000, num_materials=4, tex_size=32)
 

@@ -40,6 +40,10 @@ from kanirenderer_tpu_torch.shade import deferred, forward
 
 W, H, D = 256, 192, 256
 
+# The suite runs several workers on one host: keep each worker's PyTorch
+# from taking every core.
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def frame():

@@ -26,6 +26,12 @@ from kanirenderer_tpu_torch.core import math3d
 from kanirenderer_tpu_torch.ops import interpolate, vertex
 
 W, H, D = 256, 192, 256
+
+# The suite runs several workers on one host: keep each worker's PyTorch
+# from taking every core.
+torch.set_num_threads(2)
+
+
 POSES = {
     "courtyard": ([-900.0, 180.0, 0.0], 0.0, -5.0),
     "near_floor": ([0.0, 3.0, 0.0], 0.0, -10.0),   # near-plane crossers

@@ -41,6 +41,10 @@ from test_torch_raster import (D, H, W, _geometry, random_triangles,
                                ref_setup)
 from test_torch_raster import pallas_loop_form  # noqa: F401  (fixture)
 
+# The suite runs several workers on one host: keep each worker's PyTorch
+# from taking every core.
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def geometry():
