@@ -54,9 +54,33 @@ case); any failure exits non-zero:
      back through decode_png;
  18. cli.main in-process at 256×256 on the card, PNG sink;
  19. the small 16-bit scene through render_frame on the card against the
-     CPU, corner-major and vertex-major, golden criterion.
-Then a JSON line of per-kernel results, the card line, and last
-{"ok": true, "device": {...}}.
+     CPU, corner-major and vertex-major, golden criterion;
+ 20. row bands: K1 on 4 bands of the 2048² map, K2 and K2w on 4
+     contiguous (270 rows) and 4 interleaved (17 tile rows) bands at
+     1920×1080, bit-equal to their plain versions and reassembled to the
+     whole raster; the same on every case of ops/raster_cases.py at n = 2
+     and at an n whose bands are not whole tile rows;
+ 21. banded frames at 1920×1080 in one process (parallel/mesh with
+     make_mesh(n)), n = 2 and 4, contiguous and interleaved (DEBUG
+     contiguous only): LIT_SHADOW fresh (map in bands, table gathered),
+     LIT_SHADOW with an external map, WIREFRAME, DEBUG with either
+     texture, each reassembled torch.equal to render_frame's u8 surface
+     and depth and launching its band kernels once per band;
+ 22. per-band stage times of the LIT_SHADOW frame on the one card, n = 2
+     and 4, contiguous and interleaved: shadow band, raster, shade,
+     surface, K1 and K2, the replicated geometry, the imbalance and the
+     bytes of each collective;
+ 23. the same frame over torch.distributed: 2 gloo ranks sharing the
+     card (and 2 NCCL ranks where there are two cards), 2 frames, each
+     rank's frame torch.equal to the one-process frame; then
+     parallel.dryrun_multichip(2) (on one card: the bands looped on it).
+Kernel times are CUDA-graph replays (mean, and the median of the
+replays; the eager 20-call mean beside them).  Before and after the frame
+phases 6, 10, 14-15 and 21-22 a "state" line gives the card's clocks,
+throttle reasons, temperature and power and the host CPU's MHz.
+Then a JSON line of per-kernel results (the band variants' rows averaged
+over the bands of the bench's 4 contiguous bands), the card line, and
+last {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -107,6 +131,9 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Mean ms of ``reps`` eager calls between two events: the plain
+    versions' time (a kernel's wrapper costs ~0.04 ms of host time per
+    call, which this reads once the kernel is faster: ``graph_ms``)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -118,6 +145,79 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 10) -> tuple:
+    """(mean, median) device ms of one call: ``reps`` calls captured into
+    a CUDA graph, the graph replayed ``replays`` times between two events
+    each; the mean over all replays and the median of the replays'
+    per-call times.  The host's work per call is not in them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / reps)
+    del graph
+    return statistics.mean(times), statistics.median(times)
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median ms on the host clock of ``reps`` calls, each ending in a
+    device synchronisation."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def device_state(label: str) -> None:
+    """Print the card's SM and memory clocks, active throttle reasons,
+    temperature and power draw (nvidia-smi) and the host CPU's MHz
+    (/proc/cpuinfo): which state a run of frames was in."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+         "clocks_throttle_reasons.active,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    smi = out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else "not readable"
+    with open("/proc/cpuinfo") as f:
+        mhz = [float(ln.split(":")[1]) for ln in f
+               if ln.startswith("cpu MHz")]
+    cpu = (f"mean {statistics.mean(mhz):.0f} min {min(mhz):.0f} max "
+           f"{max(mhz):.0f} over {len(mhz)} cores" if mhz else "not readable")
+    print(f"state {label}: card (sm MHz, mem MHz, throttle reasons, C, W) "
+          f"{smi}; host CPU MHz {cpu}", flush=True)
+
+
+def launches(**nonzero) -> dict:
+    """Every wrapper's launch count: the given ones, 0 for the others."""
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    return {k: nonzero.get(k, 0) for k in rc.launch_counts}
+
+
+def timing(mean: float, median: float, eager: float) -> str:
+    return (f"{mean:.4f} ms (graph replay; median {median:.4f}, eager "
+            f"{eager:.4f})")
 
 
 def nbytes(*tensors) -> int:
@@ -149,26 +249,42 @@ def grid_stats(bins, hit_evals: int) -> str:
             f"per pair {hits / max(pairs, 1):.2f} of 128")
 
 
-def raster_work(rows, bbox, bins, width, height, wire_thresh=None):
+def raster_work(rows, bbox, bins, width, height, wire_thresh=None, y0=0,
+                y_stride=1, tile_rows=None):
     """(triangle, pixel) evaluations the kernel makes on these inputs: the
     bbox-hitting triangles of every (tile, chunk) pair × tile pixels, and
     with ``wire_thresh`` the evaluations whose five-plane coverage holds
     (where the kernel goes on to the edge distances) and those of them
-    within the threshold of an edge."""
+    within the threshold of an edge.  ``y0``/``y_stride``: a band's bins
+    (their tile row j at global rows y0 + j·y_stride·tile_h);
+    ``tile_rows``: only the pairs of tile rows [r0, r1) (K1 on a band)."""
     from kanirenderer_tpu_torch.ops import raster_cuda as rc
     tile, chunk = rc._pairs(bins)
+    if tile_rows is not None:
+        row = tile // bins.tiles_x
+        keep = (row >= tile_rows[0]) & (row < tile_rows[1])
+        tile, chunk = tile[keep], chunk[keep]
     hits = covered = passed = 0
     for s in range(0, tile.shape[0], rc.PAIR_BATCH):
         t, c = tile[s:s + rc.PAIR_BATCH], chunk[s:s + rc.PAIR_BATCH]
-        _, hit = rc._bbox_hits(bbox, t, c, bins)
+        _, hit = rc._bbox_hits(bbox, t, c, bins, y0, y_stride)
         hits += int(hit.sum()) * bins.tile_w * bins.tile_h
         if wire_thresh is not None:
-            cov, _, _ = rc._eval_pairs(rows, bbox, t, c, bins, width, height)
+            cov, _, _ = rc._eval_pairs(rows, bbox, t, c, bins, width, height,
+                                       None, y0, y_stride)
             covered += int(cov.sum())
             cov, _, _ = rc._eval_pairs(rows, bbox, t, c, bins, width, height,
-                                       wire_thresh)
+                                       wire_thresh, y0, y_stride)
             passed += int(cov.sum())
     return hits, covered, passed
+
+
+def chunk_rows_bytes(chunks, *tensors) -> int:
+    """Bytes of the rows of ``tensors`` ((T, …), 128 rows a chunk) that
+    belong to the distinct chunk ids in ``chunks``."""
+    import torch
+    used = int(torch.unique(chunks[chunks >= 0]).numel())
+    return sum(used * 128 * t[0].numel() * t.element_size() for t in tensors)
 
 
 def bound(bytes_moved: int, ops: int) -> tuple:
@@ -321,6 +437,7 @@ def application_path(tmp: str, card: str) -> dict:
 
     # ---- phases 14, 15: the loop, steady state and fresh ----
     counts, medians = {}, {}
+    device_state("before phase 14")
     for phase, run, cache in ((14, "loop_steady", True),
                               (15, "loop_fresh", False)):
         stamps, warned = [], io.StringIO()
@@ -345,8 +462,8 @@ def application_path(tmp: str, card: str) -> dict:
               f"{stats['fps']:.1f}, warnings {warned.getvalue()!r} on {card}",
               flush=True)
         n = LOOP_FRAMES
-        want = {"rasterize_depth": 1 if cache else n, "rasterize_pixels": n,
-                "rasterize_pixels_wireframe": 0, "rasterize_visibility": 0}
+        want = launches(rasterize_depth=1 if cache else n,
+                        rasterize_pixels=n)
         if stats["frames"] != n or counts[run] != want:
             fail(f"{run}: launch counts {counts[run]} != {want}")
         if "binning dropped" in warned.getvalue() or stats["healed"]:
@@ -387,6 +504,7 @@ def application_path(tmp: str, card: str) -> dict:
           f"flythrough.fly fresh on the same scene and inputs "
           f"{second['fly'][0]:.2f} / {second['fly'][1]:.2f} on {card}",
           flush=True)
+    device_state("after phase 15")
 
     # ---- phase 16: steady equals fresh ----
     cfg = RenderConfig(width=W, height=H, mode=RenderMode.LIT_SHADOW,
@@ -439,8 +557,8 @@ def application_path(tmp: str, card: str) -> dict:
     # still; the drop (frame 9) rebuilds; DEBUG (frame 11) rasterizes its
     # own map.
     want_k1 = [0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 4, 4, 4, 4]
-    want = {"rasterize_depth": 4, "rasterize_pixels": n - 1,
-            "rasterize_pixels_wireframe": 1, "rasterize_visibility": 0}
+    want = launches(rasterize_depth=4, rasterize_pixels=n - 1,
+                    rasterize_pixels_wireframe=1)
     picked = stats["picked"]
     if (stats["frames"] != n or stats["mode"] != "LIT_SHADOW"
             or k1_at != want_k1 or counts["events"] != want
@@ -506,6 +624,422 @@ def application_path(tmp: str, card: str) -> dict:
     return counts
 
 
+def split_bands(height: int, tile_h: int, n: int, interleave: bool) -> list:
+    """[(y0, band_h, y_stride)] of n contiguous or interleaved row bands
+    of ``height`` rows (parallel/mesh._band_geometry)."""
+    if interleave:
+        band_h = -(-(-(-height // tile_h)) // n) * tile_h
+        return [(k * tile_h, band_h, n) for k in range(n)]
+    return [(k * (height // n), height // n, 1) for k in range(n)]
+
+
+def odd_split(height: int, tile_h: int) -> int:
+    """The least n > 2 that divides ``height`` into bands that are not
+    whole tile rows."""
+    return next(n for n in range(3, height + 1)
+                if height % n == 0 and (height // n) % tile_h)
+
+
+def bins_of_band(bins, bbox, width, cap, y0, band_h, y_stride):
+    """A band's bins: its tile rows of the full grid's ``bins`` when
+    interleaved, its own grid's when contiguous."""
+    from kanirenderer_tpu_torch.ops.binning import bin_tiles, interleave_bins
+    if y_stride > 1:
+        return interleave_bins(bins, y0 // bins.tile_h, y_stride)
+    return bin_tiles(bbox, width, band_h, bins.tile_w, bins.tile_h, cap,
+                     y0=y0)
+
+
+def band_kernels(scene, state, cfg, wcfg, kernels) -> None:
+    """Phase 20: K1, K2 and K2w on row bands against their plain versions
+    (bit-equal) and against the whole raster's rows, at the bench shapes
+    and on the cases of ops/raster_cases.py; their rows of the kernels
+    line (graph-replay time, plain time and bound per band, averaged over
+    the bands of the bench's n = 4 contiguous split)."""
+    import torch
+    from kanirenderer_tpu_torch.ops import raster_cases
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    from kanirenderer_tpu_torch.parallel.mesh import deinterleave_rows
+    from kanirenderer_tpu_torch.passes.frame import frame_geometry
+    W, H, D = cfg.width, cfg.height, cfg.shadow_dim
+    g = frame_geometry(scene, state, cfg)
+    gw = frame_geometry(scene, state, wcfg)
+
+    # K1: the map in 4 bands of 512 rows, from the whole map's bins.
+    sh, sb = g.shadow_setup, g.shadow_bins
+    whole = rc.rasterize_depth(sh.setup, sh.bbox, sb, D)
+    n = 4
+    bh = D // n
+    runs = rc.band_entries(sb, [(k * bh, bh) for k in range(n)])
+    rows = []
+    for k, (e0, e1) in enumerate(runs):
+        y0 = k * bh
+        kb = rc.rasterize_depth(sh.setup, sh.bbox, sb, D, y0, bh, (e0, e1))
+        pb = rc.rasterize_depth_plain(sh.setup, sh.bbox, sb, D, y0, bh)
+        torch.cuda.synchronize()
+        equal = torch.equal(kb, pb)
+        part = torch.equal(kb, whole[y0:y0 + bh])
+        ms, med = graph_ms(lambda: rc.rasterize_depth(
+            sh.setup, sh.bbox, sb, D, y0, bh, (e0, e1)))
+        pms = cuda_ms(lambda: rc.rasterize_depth_plain(
+            sh.setup, sh.bbox, sb, D, y0, bh), 1)
+        hits, _, _ = raster_work(sh.setup, sh.bbox, sb, D, D,
+                                 tile_rows=(y0 // sb.tile_h,
+                                            (y0 + bh) // sb.tile_h))
+        b_ms, b_by = bound(
+            chunk_rows_bytes(sb.chunk[e0:e1], sh.setup, sh.bbox)
+            + nbytes(sb.pair_tile[e0:e1], sb.chunk[e0:e1], kb),
+            hits * OPS_COVER)
+        rows.append(dict(err=(kb - pb).abs().max().item(), ms=ms,
+                         ms_median=med, plain_ms=pms, bound_ms=b_ms,
+                         bound_by=b_by))
+        print(f"phase 20 K1 band {k}/{n} map rows [{y0}, {y0 + bh}): "
+              f"entries {e1 - e0}, bit-equal to plain {equal}, to the whole "
+              f"map's rows {part}, covered "
+              f"{(kb < 1.0).float().mean().item():.3f}, {ms:.4f} ms (graph "
+              f"replay; median {med:.4f}) vs plain {pms:.1f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        if not (equal and part):
+            fail(f"K1 band {k} disagrees")
+    kernels["rasterize_depth_band"] = band_row(
+        rows, "kanirenderer_tpu_torch/csrc/raster_depth.cu",
+        "kanirenderer_tpu/ops/raster_pallas.py:1304")
+
+    # K2 and K2w: 4 contiguous bands of 270 rows (not whole 16-row tiles)
+    # and 4 interleaved bands of 17 tile rows.
+    for wire, gg, name in ((False, g, "rasterize_pixels_band"),
+                           (True, gw, "rasterize_pixels_wireframe_band")):
+        st, thresh = gg.setup, wcfg.wire_thresh_px
+        full = rc.rasterize_pixels(gg.records, st.setup, st.bbox, gg.bins, W,
+                                   H, wire, thresh)
+        for interleave in (False, True):
+            rows, bands = [], []
+            for k, (y0, bh, stride) in enumerate(
+                    split_bands(H, cfg.tile_h, n, interleave)):
+                bins = bins_of_band(gg.bins, st.bbox, W,
+                                    cfg.max_chunks_per_tile, y0, bh, stride)
+                args = (gg.records, st.setup, st.bbox, bins, W, H, wire,
+                        thresh, y0, stride, bh)
+                kb = rc.rasterize_pixels(*args)
+                pb = rc.rasterize_pixels_plain(*args)
+                torch.cuda.synchronize()
+                differ = pixels_differ(kb, pb)
+                bands.append(kb)
+                ms, med = graph_ms(lambda: rc.rasterize_pixels(*args))
+                pms = cuda_ms(lambda: rc.rasterize_pixels_plain(*args), 1)
+                hits, cov, _ = raster_work(st.setup, st.bbox, bins, W, H,
+                                           thresh if wire else None, y0,
+                                           stride)
+                ops = hits * OPS_COVER + int(kb.mask.sum()) * OPS_K2_PIXEL
+                if wire:
+                    ops += cov * OPS_WIRE \
+                        + hits // (bins.tile_w * bins.tile_h) * OPS_SCALES
+                _, used = rc._pairs(bins)         # the band's entries
+                b_ms, b_by = bound(
+                    chunk_rows_bytes(used, gg.records, st.setup, st.bbox)
+                    + nbytes(bins.start, bins.count, kb.z, kb.varyings,
+                             kb.mat_id) + 4 * used.numel()
+                    + 5 * nbytes(kb.mat_id), ops)
+                rows.append(dict(err=pixels_err(kb, pb), ms=ms,
+                                 ms_median=med, plain_ms=pms, bound_ms=b_ms,
+                                 bound_by=b_by))
+                print(f"phase 20 {'K2w' if wire else 'K2'} "
+                      f"{'interleaved' if interleave else 'contiguous'} band "
+                      f"{k}/{n} (y0 {y0}, {bh} rows, stride {stride}): "
+                      f"outputs not bit-equal to plain {differ}, covered "
+                      f"{kb.mask.float().mean().item():.3f}, "
+                      f"{grid_stats(bins, hits)}, overflow "
+                      f"{int(bins.overflow)}, {ms:.4f} ms (graph replay; "
+                      f"median {med:.4f}) vs plain {pms:.1f} ms, bound "
+                      f"{b_ms:.4f} ms ({b_by})", flush=True)
+                if differ:
+                    fail(f"{name} band {k} disagrees with its plain version")
+            together = {f: torch.cat([getattr(b, f) for b in bands], -2)
+                        for f in ("tid", "z", "varyings")}
+            if interleave:
+                together = {f: deinterleave_rows(
+                    t.movedim(-2, 0), n, cfg.tile_h, H).movedim(0, -2)
+                    for f, t in together.items()}
+            apart = [f for f, t in together.items()
+                     if not torch.equal(t, getattr(full, f))]
+            print(f"phase 20 {'K2w' if wire else 'K2'} "
+                  f"{'interleaved' if interleave else 'contiguous'} bands "
+                  f"reassembled: not equal to the whole raster {apart}",
+                  flush=True)
+            if apart:
+                fail(f"{name}: bands do not reassemble to the whole raster")
+            if not interleave:
+                kernels[name] = band_row(
+                    rows, "kanirenderer_tpu_torch/csrc/raster_pixels.cu",
+                    "kanirenderer_tpu/ops/raster_pallas.py:1215")
+        del full, bands
+
+    # The adversarial cases in bands: n = 2 and an n whose bands are not
+    # whole tile rows, contiguous and interleaved; K1 on the square cases.
+    T = raster_cases.TILE
+    for case, sq in zip(raster_cases.adversarial_cases(scene.device),
+                        raster_cases.adversarial_cases(scene.device,
+                                                       square=True)):
+        differ = []
+        for n in (2, odd_split(case.height, T)):
+            for interleave in (False, True):
+                for y0, bh, stride in split_bands(case.height, T, n,
+                                                  interleave):
+                    bins = bins_of_band(case.bins, case.bbox, case.width,
+                                        640, y0, bh, stride)
+                    for wire in (False, True):
+                        args = (case.setup, case.bbox, bins, case.width,
+                                case.height, wire, raster_cases.WIRE_THRESH,
+                                y0, stride, bh)
+                        kb = rc.rasterize_pixels(case.records, *args)
+                        pb = rc.rasterize_pixels_plain(case.records, *args)
+                        differ += [f"n{n}{'i' if interleave else 'c'}y{y0}"
+                                   f"{'w' if wire else ''}.{f}"
+                                   for f in pixels_differ(kb, pb)]
+        for n in (2, odd_split(sq.height, T)):
+            whole = rc.rasterize_depth(sq.setup, sq.bbox, sq.bins, sq.width)
+            for y0, bh, _ in split_bands(sq.height, T, n, False):
+                kb = rc.rasterize_depth(sq.setup, sq.bbox, sq.bins, sq.width,
+                                        y0, bh)
+                pb = rc.rasterize_depth_plain(sq.setup, sq.bbox, sq.bins,
+                                              sq.width, y0, bh)
+                if not (torch.equal(kb, pb)
+                        and torch.equal(kb, whole[y0:y0 + bh])):
+                    differ.append(f"K1 n{n} y{y0}")
+        torch.cuda.synchronize()
+        print(f"phase 20 {case.name}: bands n = 2 and "
+              f"{odd_split(case.height, T)} ({case.height} rows), K1 n = 2 "
+              f"and {odd_split(sq.height, T)} ({sq.height} rows), outputs "
+              f"not bit-equal {differ}", flush=True)
+        if differ:
+            fail(f"phase 20 {case.name}: band kernels disagree")
+
+
+def banded_frames(scene, state, kernels, card):
+    """Phase 21: banded frames at full width in one process, reassembled
+    and held ``torch.equal`` to ``render_frame``'s u8 surface and depth,
+    each launching its band kernels once per band; returns the whole
+    LIT_SHADOW frame."""
+    import torch
+    from kanirenderer_tpu_torch import flythrough
+    from kanirenderer_tpu_torch.core.types import RenderMode
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    from kanirenderer_tpu_torch.parallel.mesh import (deinterleave_rows,
+                                                      make_mesh,
+                                                      render_frame_sharded)
+    from kanirenderer_tpu_torch.passes.frame import (SHADOW_MODES,
+                                                     render_frame,
+                                                     render_shadow_map)
+    cfg, modes = flythrough.BENCH_CONFIG, flythrough.MODE_CONFIGS
+    timed = state._replace(frame_times_ms=torch.linspace(
+        2.0, 9.0, 256, device=scene.device))
+    cases = [("LIT_SHADOW fresh", cfg, state, None),
+             ("LIT_SHADOW external map", cfg, state,
+              render_shadow_map(scene, state, cfg)),
+             ("WIREFRAME", modes["wireframe"], state, None),
+             ("DEBUG depth", modes["debug_depth"], timed, None),
+             ("DEBUG shadow map", modes["debug_shadow"], timed, None)]
+    total, wholes = launches(), {}
+    for name, c, st, ext in cases:
+        whole = wholes[name] = render_frame(scene, st, c, shadow_map=ext)
+        wire = c.mode == RenderMode.WIREFRAME
+        for n in (2, 4):
+            for interleave in (False, True):
+                if interleave and c.mode == RenderMode.DEBUG:
+                    continue        # the reference's rule
+                rc.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = render_frame_sharded(scene, st, c, make_mesh(n),
+                                           shadow_map=ext,
+                                           interleave=interleave)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = dict(rc.launch_counts)
+                image, depth = out.image, out.depth
+                if interleave:
+                    image, depth = (deinterleave_rows(t, n, c.tile_h,
+                                                      c.height)
+                                    for t in (image, depth))
+                equal = torch.equal(image, whole.image) \
+                    and torch.equal(depth, whole.depth)
+                fresh = c.mode in SHADOW_MODES and ext is None
+                want = launches(**{
+                    "rasterize_pixels_wireframe_band" if wire
+                    else "rasterize_pixels_band": n,
+                    "rasterize_depth_band": n if fresh else 0})
+                print(f"phase 21 {name} in {n} "
+                      f"{'interleaved' if interleave else 'contiguous'} "
+                      f"bands: surface and depth equal to the whole frame "
+                      f"{equal}, launches {counts}, overflow "
+                      f"{int(out.raster_overflow)}, {ms:.1f} ms (one "
+                      f"process, one card)", flush=True)
+                if not equal or counts != want or int(out.raster_overflow):
+                    fail(f"phase 21 {name}: banded frame or launch counts "
+                         f"{counts} != {want}")
+                for k in total:
+                    total[k] += counts[k]
+        if image_std(whole.image) < 1.0:
+            fail(f"phase 21 {name}: implausible whole frame")
+    for name in ("rasterize_depth_band", "rasterize_pixels_band",
+                 "rasterize_pixels_wireframe_band"):
+        kernels[name]["launches"] = total[name]
+    return wholes["LIT_SHADOW fresh"]
+
+
+def band_times(scene, state, card) -> None:
+    """Phase 22: per-band stage times of the LIT_SHADOW bench frame on one
+    card, each band's stages run in turn through passes/frame's stage
+    functions, as render_band runs them: median host ms of each band's
+    shadow stage (its run of the map's bins, its K1 band and its table
+    rows), raster (binning and K2), shade and surface, the graph-replay
+    device ms of its K1 and K2 launches, the replicated geometry, the
+    imbalance max band / mean band and the bytes of each collective."""
+    import torch
+    from kanirenderer_tpu_torch import flythrough
+    from kanirenderer_tpu_torch.parallel.mesh import _band_geometry
+    from kanirenderer_tpu_torch.passes.frame import (ShadowGeometry,
+                                                     band_bins, band_edges,
+                                                     band_pixels, band_shade,
+                                                     band_surface,
+                                                     frame_geometry,
+                                                     shadow_band_map,
+                                                     shadow_band_runs,
+                                                     shadow_table_band)
+    cfg = flythrough.BENCH_CONFIG
+    W, D = cfg.width, cfg.shadow_dim
+    for n in (2, 4):
+        for interleave in (False, True):
+            form = "interleaved" if interleave else "contiguous"
+            band_h, step = _band_geometry(cfg, n, interleave)
+            stride = n if interleave else 1
+            geo_ms = host_ms(lambda: frame_geometry(
+                scene, state, cfg, light_space=True, main_bins=interleave))
+            g = frame_geometry(scene, state, cfg, light_space=True,
+                               main_bins=interleave)
+            sh, sb = ShadowGeometry(g.shadow_setup, g.shadow_bins), D // n
+            runs = shadow_band_runs(sh, cfg, range(n), n)
+            maps = [shadow_band_map(sh, cfg, k, n, runs[k]) for k in range(n)]
+            edges = torch.stack([band_edges(m) for m in maps])
+            table = torch.cat([shadow_table_band(maps[k], edges, k, n)
+                               for k in range(n)])
+            per = []
+            for k in range(n):
+                y0 = k * (step if interleave else band_h)
+                k1_ms, _ = graph_ms(lambda: shadow_band_map(sh, cfg, k, n,
+                                                            runs[k]))
+                shadow_ms = host_ms(lambda: shadow_table_band(
+                    shadow_band_map(sh, cfg, k, n,
+                                    shadow_band_runs(sh, cfg, [k], n)[0]),
+                    edges, k, n))
+                bins = band_bins(g, cfg, y0, band_h, stride)
+                k2_ms, _ = graph_ms(lambda: band_pixels(g, cfg, bins, y0,
+                                                        band_h, stride))
+                raster_ms = host_ms(lambda: band_pixels(
+                    g, cfg, band_bins(g, cfg, y0, band_h, stride), y0,
+                    band_h, stride))
+                pix = band_pixels(g, cfg, bins, y0, band_h, stride)
+                shade_ms = host_ms(lambda: band_shade(scene, state, cfg, pix,
+                                                      table, g.light_vp))
+                image = band_shade(scene, state, cfg, pix, table, g.light_vp)
+                surface_ms = host_ms(lambda: band_surface(
+                    image, state, cfg, pix.z, None, y0))
+                per.append(dict(total=shadow_ms + raster_ms + shade_ms
+                                + surface_ms, k2=k2_ms))
+                print(f"phase 22 {n} {form} bands, band {k} (y0 {y0}): "
+                      f"shadow {shadow_ms:.3f} ms (K1 {k1_ms:.4f}), raster "
+                      f"{raster_ms:.3f} (K2 {k2_ms:.4f}), shade "
+                      f"{shade_ms:.3f}, surface {surface_ms:.3f}, in all "
+                      f"{per[-1]['total']:.3f} ms", flush=True)
+            tot = [p["total"] for p in per]
+            k2s = [p["k2"] for p in per]
+            tbl_band = table.shape[0] // n * table.shape[1] * 4
+            print(f"phase 22 {n} {form} bands of {band_h} rows: geometry "
+                  f"{geo_ms:.3f} ms (replicated); per band max "
+                  f"{max(tot):.3f} mean {statistics.mean(tot):.3f} ms, "
+                  f"imbalance {max(tot) / statistics.mean(tot):.3f} (K2 "
+                  f"{max(k2s) / statistics.mean(k2s):.3f}); collectives "
+                  f"per band: halo {3 * D * 4} B, table rows {tbl_band} B "
+                  f"(gathered {n * tbl_band} B), frame assembly "
+                  f"{band_h * W * 7} B (u8 surface + f32 depth); DEBUG adds "
+                  f"its map band {sb * D * 4} B and depth band "
+                  f"{band_h * W * 4} B; single-card band times, no "
+                  f"multi-card time measured, on {card}", flush=True)
+
+
+def rank_frames(rank: int, n: int, frames: int) -> dict:
+    """Phase 23, one rank of ``n``: the full-size stand-in at the bench
+    pose, ``frames`` LIT_SHADOW frames (fresh map in bands, its table
+    assembled over the group) through ``render_frame_sharded`` on this
+    rank's card; the last frame, host ms per frame and launches per
+    frame."""
+    import torch
+    from kanirenderer_tpu_torch import flythrough
+    from kanirenderer_tpu_torch.core.types import (camera_state,
+                                                   default_lights,
+                                                   frame_state)
+    from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    from kanirenderer_tpu_torch.parallel.mesh import (make_mesh,
+                                                      render_frame_sharded)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    scene = sponza_standin_scene(device=dev)
+    cam0 = flythrough.BENCH_CAM0
+    state = frame_state(scene, camera_state(cam0.position, cam0.yaw,
+                                            cam0.pitch, dev),
+                        default_lights(device=dev))
+    mesh = make_mesh()
+    ms, counts = [], []
+    for _ in range(frames):
+        rc.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = render_frame_sharded(scene, state, flythrough.BENCH_CONFIG,
+                                   mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(dict(rc.launch_counts))
+    return dict(image=out.image.cpu(), depth=out.depth.cpu(), ms=ms,
+                counts=counts, device=str(dev))
+
+
+def distributed_form(whole, card, forms) -> None:
+    """Phase 23: the banded frame over ``torch.distributed``, for each
+    (backend, ranks, label) of ``forms``; each rank's assembled frame
+    against the whole frame ``whole``, ``torch.equal``."""
+    import torch
+    from kanirenderer_tpu_torch.parallel.mesh import run_ranks
+    want = launches(rasterize_depth_band=1, rasterize_pixels_band=1)
+    frames = 2
+    for backend, n, label in forms:
+        t0 = time.perf_counter()
+        ranks = run_ranks(n, rank_frames, (frames,), backend)
+        secs = time.perf_counter() - t0
+        equal = all(torch.equal(r["image"], whole.image.cpu())
+                    and torch.equal(r["depth"], whole.depth.cpu())
+                    for r in ranks)
+        counted = all(c == want for r in ranks for c in r["counts"])
+        print(f"phase 23 {label}: {frames} frames LIT_SHADOW 1920x1080 "
+              f"fresh banded map; each rank's frame equal to the one-process "
+              f"frame {equal}; launches per rank and frame as wanted "
+              f"{counted} ({ranks[0]['counts'][-1]}); host ms per frame "
+              f"{[[round(m, 1) for m in r['ms']] for r in ranks]} on "
+              f"{[r['device'] for r in ranks]}; {secs:.1f} s with the "
+              f"processes' start on {card}", flush=True)
+        if not (equal and counted):
+            fail(f"phase 23 {label}: ranks disagree with one process")
+
+
+def band_row(rows: list, source: str, replaces: str) -> dict:
+    """A band kernel's row of the kernels line: each number the mean over
+    the bands, the error their maximum, bound_by that of the band with the
+    largest bound."""
+    return dict(source=source, replaces=replaces,
+                max_abs_err=max(r["err"] for r in rows),
+                **{f: statistics.mean(r[f] for r in rows)
+                   for f in ("ms", "ms_median", "plain_ms", "bound_ms")},
+                bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+                bands=len(rows))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -559,8 +1093,10 @@ def main() -> int:
     torch.cuda.synchronize()
     err1 = (k1 - p1).abs().max().item()
     covered1 = (k1 < 1.0).float().mean().item()
-    ms1 = cuda_ms(lambda: rc.rasterize_depth(sh.setup, sh.bbox,
-                                             g.shadow_bins, D), 20)
+    eager1 = cuda_ms(lambda: rc.rasterize_depth(sh.setup, sh.bbox,
+                                                g.shadow_bins, D), 20)
+    ms1, med1 = graph_ms(lambda: rc.rasterize_depth(sh.setup, sh.bbox,
+                                                    g.shadow_bins, D))
     pms1 = cuda_ms(lambda: rc.rasterize_depth_plain(sh.setup, sh.bbox,
                                                     g.shadow_bins, D), 2)
     hits1, _, _ = raster_work(sh.setup, sh.bbox, g.shadow_bins, D, D)
@@ -568,13 +1104,14 @@ def main() -> int:
     print(f"phase 3 K1 {D}x{D}: max|kernel-plain| {err1:.3g} "
           f"(tol {K1_TOL}), bit-equal {torch.equal(k1, p1)}, covered "
           f"{covered1:.3f}, {grid_stats(b, hits1)}, "
-          f"{ms1:.3f} ms vs plain {pms1:.1f} ms", flush=True)
+          f"{timing(ms1, med1, eager1)} vs plain {pms1:.1f} ms", flush=True)
     if not torch.equal(k1, p1) or covered1 <= 0.0:
         fail("K1 disagrees with its plain version")
     kernels["rasterize_depth"] = dict(
         source="kanirenderer_tpu_torch/csrc/raster_depth.cu",
         replaces="kanirenderer_tpu/ops/raster_pallas.py:410",
-        max_abs_err=err1, ms=ms1, plain_ms=pms1,
+        max_abs_err=err1, ms=ms1, ms_median=med1, ms_eager=eager1,
+        plain_ms=pms1,
         bytes=nbytes(sh.setup, sh.bbox, b.pair_tile, b.chunk, k1),
         ops=hits1 * OPS_COVER)
 
@@ -586,8 +1123,10 @@ def main() -> int:
     torch.cuda.synchronize()
     differ = pixels_differ(k2, p2)
     err2 = pixels_err(k2, p2)
-    ms2 = cuda_ms(lambda: rc.rasterize_pixels(g.records, cs.setup, cs.bbox,
-                                              g.bins, W, H), 20)
+    eager2 = cuda_ms(lambda: rc.rasterize_pixels(
+        g.records, cs.setup, cs.bbox, g.bins, W, H), 20)
+    ms2, med2 = graph_ms(lambda: rc.rasterize_pixels(
+        g.records, cs.setup, cs.bbox, g.bins, W, H))
     pms2 = cuda_ms(lambda: rc.rasterize_pixels_plain(
         g.records, cs.setup, cs.bbox, g.bins, W, H), 2)
     hits2, _, _ = raster_work(cs.setup, cs.bbox, g.bins, W, H)
@@ -595,14 +1134,15 @@ def main() -> int:
     print(f"phase 4 K2 {W}x{H}: outputs not bit-equal {differ} (tol "
           f"{K2_TOL}), max|kernel-plain| {err2:.3g}, covered "
           f"{k2.mask.float().mean().item():.3f}, {grid_stats(b, hits2)}, "
-          f"{ms2:.3f} ms vs plain {pms2:.1f} ms", flush=True)
+          f"{timing(ms2, med2, eager2)} vs plain {pms2:.1f} ms", flush=True)
     if differ or not k2.mask.any():
         fail("K2 disagrees with its plain version")
     px_out = nbytes(k2.z, k2.varyings, k2.mat_id) + 5 * nbytes(k2.mat_id)
     kernels["rasterize_pixels"] = dict(
         source="kanirenderer_tpu_torch/csrc/raster_pixels.cu",
         replaces="kanirenderer_tpu/ops/raster_pallas.py:759",
-        max_abs_err=err2, ms=ms2, plain_ms=pms2,
+        max_abs_err=err2, ms=ms2, ms_median=med2, ms_eager=eager2,
+        plain_ms=pms2,
         bytes=nbytes(g.records, cs.setup, cs.bbox, b.start, b.count, b.chunk)
         + px_out,
         ops=hits2 * OPS_COVER + int(k2.mask.sum()) * OPS_K2_PIXEL)
@@ -632,6 +1172,7 @@ def main() -> int:
         fail("small frame through the kernels disagrees with the CPU path")
 
     # ---- phase 6: the main path ----
+    device_state("before phase 6")
     cams = flythrough.camera_path(WARMUP + FRAMES)
     rc.reset_launch_counts()
     ms, overflow, out = [], 0, None
@@ -648,9 +1189,7 @@ def main() -> int:
           f"shadow, launches {counts}, overflow {overflow}, "
           f"image {tuple(img.shape)} {img.dtype} std {std:.2f}, "
           f"covered {covered:.3f}", flush=True)
-    if counts != {"rasterize_depth": n, "rasterize_pixels": n,
-                  "rasterize_pixels_wireframe": 0,
-                  "rasterize_visibility": 0}:
+    if counts != launches(rasterize_depth=n, rasterize_pixels=n):
         fail(f"launch counts {counts} != {n} per kernel")
     if overflow:
         fail(f"binning dropped {overflow} chunks")
@@ -660,6 +1199,7 @@ def main() -> int:
     print(f"median frame {med:.2f} ms over {FRAMES} frames "
           f"(min {min(ms[WARMUP:]):.2f}, max {max(ms[WARMUP:]):.2f}) "
           f"on {card}", flush=True)
+    device_state("after phase 6")
     kernels["rasterize_depth"]["launches"] = counts["rasterize_depth"]
     kernels["rasterize_pixels"]["launches"] = counts["rasterize_pixels"]
 
@@ -676,8 +1216,10 @@ def main() -> int:
     torch.cuda.synchronize()
     differ = pixels_differ(k2w, p2w)
     err2w = pixels_err(k2w, p2w)
-    ms2w = cuda_ms(lambda: rc.rasterize_pixels(
+    eager2w = cuda_ms(lambda: rc.rasterize_pixels(
         gw.records, ws.setup, ws.bbox, gw.bins, W, H, True, thresh), 20)
+    ms2w, med2w = graph_ms(lambda: rc.rasterize_pixels(
+        gw.records, ws.setup, ws.bbox, gw.bins, W, H, True, thresh))
     pms2w = cuda_ms(lambda: rc.rasterize_pixels_plain(
         gw.records, ws.setup, ws.bbox, gw.bins, W, H, True, thresh), 2)
     hits2w, cov2w, pass2w = raster_work(ws.setup, ws.bbox, gw.bins, W, H,
@@ -691,7 +1233,8 @@ def main() -> int:
           f"{wcfg.max_chunks_per_tile}), overflow {int(b.overflow)}, of "
           f"{hits2w} bbox-hit evaluations {cov2w} pass the five planes and "
           f"{pass2w} the threshold too, "
-          f"{ms2w:.3f} ms vs plain {pms2w:.1f} ms", flush=True)
+          f"{timing(ms2w, med2w, eager2w)} vs plain {pms2w:.1f} ms",
+          flush=True)
     if differ or not k2w.mask.any():
         fail("K2w disagrees with its plain version")
     if int(b.overflow):
@@ -699,7 +1242,8 @@ def main() -> int:
     kernels["rasterize_pixels_wireframe"] = dict(
         source="kanirenderer_tpu_torch/csrc/raster_pixels.cu",
         replaces="kanirenderer_tpu/ops/raster_pallas.py:831",
-        max_abs_err=err2w, ms=ms2w, plain_ms=pms2w,
+        max_abs_err=err2w, ms=ms2w, ms_median=med2w, ms_eager=eager2w,
+        plain_ms=pms2w,
         bytes=nbytes(gw.records, ws.setup, ws.bbox, b.start, b.count,
                      b.chunk) + px_out,
         ops=hits2w * OPS_COVER + cov2w * OPS_WIRE + tile_hits2w * OPS_SCALES
@@ -718,14 +1262,17 @@ def main() -> int:
                   if not torch.equal(a, b)]
         err3 = max((k3.z - p3.z).abs().max().item(),
                    (k3.bary - p3.bary).abs().max().item())
-        ms3 = cuda_ms(lambda: rc.rasterize(
+        eager3 = cuda_ms(lambda: rc.rasterize(
             st.setup, st.bbox, gg.bins, W, H, wire, thresh), 20)
+        ms3, med3 = graph_ms(lambda: rc.rasterize(
+            st.setup, st.bbox, gg.bins, W, H, wire, thresh))
         pms3 = cuda_ms(lambda: rc.rasterize_plain(
             st.setup, st.bbox, gg.bins, W, H, wire, thresh), 2)
         print(f"phase 8 K3 {W}x{H} wireframe={wire}: outputs not bit-equal "
               f"{differ} (tol {K3_TOL}), max|kernel-plain| {err3:.3g}, "
               f"covered {(k3.tri >= 0).float().mean().item():.3f}, "
-              f"{ms3:.3f} ms vs plain {pms3:.1f} ms", flush=True)
+              f"{timing(ms3, med3, eager3)} vs plain {pms3:.1f} ms",
+              flush=True)
         if differ or not (k3.tri >= 0).any():
             fail(f"K3 (wireframe={wire}) disagrees with its plain version")
         k3_err = max(k3_err, err3)
@@ -738,13 +1285,15 @@ def main() -> int:
                 + tile_hits2w * OPS_SCALES
             b_ms, b_by = bound(bytes3, ops3)
             kernels["rasterize_visibility"].update(
-                ms_wireframe=ms3, plain_ms_wireframe=pms3,
+                ms_wireframe=ms3, ms_median_wireframe=med3,
+                ms_eager_wireframe=eager3, plain_ms_wireframe=pms3,
                 bound_ms_wireframe=b_ms, bound_by_wireframe=b_by)
         else:     # g's bins: phase 4
             kernels["rasterize_visibility"] = dict(
                 source="kanirenderer_tpu_torch/csrc/raster_visibility.cu",
                 replaces="kanirenderer_tpu/ops/raster_pallas.py:410",
-                ms=ms3, plain_ms=pms3, bytes=bytes3,
+                ms=ms3, ms_median=med3, ms_eager=eager3, plain_ms=pms3,
+                bytes=bytes3,
                 ops=ops3 + hits2 * OPS_COVER)
         del k3, p3
     kernels["rasterize_visibility"]["max_abs_err"] = k3_err
@@ -761,6 +1310,7 @@ def main() -> int:
                  "the CPU path")
 
     # ---- phase 10: every mode on the main path ----
+    device_state("before phase 10")
     n = WARMUP + MODE_FRAMES
     cams = flythrough.camera_path(n)
     medians = {}
@@ -772,10 +1322,9 @@ def main() -> int:
             overflow = max(overflow, int(out.raster_overflow))
         counts = dict(rc.launch_counts)
         wire = mcfg.mode == RenderMode.WIREFRAME
-        want = {"rasterize_depth": n * (mcfg.mode in SHADOW_MODES),
-                "rasterize_pixels": 0 if wire else n,
-                "rasterize_pixels_wireframe": n if wire else 0,
-                "rasterize_visibility": 0}
+        want = launches(rasterize_depth=n * (mcfg.mode in SHADOW_MODES),
+                        rasterize_pixels=0 if wire else n,
+                        rasterize_pixels_wireframe=n if wire else 0)
         img = out.image
         p = mcfg.present_scale
         dtype = torch.float16 if mcfg.hdr else torch.uint8
@@ -798,6 +1347,7 @@ def main() -> int:
                 counts["rasterize_pixels_wireframe"]
     print(f"per-mode frame medians ms {json.dumps(medians)} on {card}",
           flush=True)
+    device_state("after phase 10")
 
     # ---- phase 11: the visibility entry ----
     rc.reset_launch_counts()
@@ -870,6 +1420,22 @@ def main() -> int:
     for name, k in kernels.items():
         k.update({f"launches_{run}": c[name]
                   for run, c in app_counts.items()})
+
+    # ---- phases 20-23: row bands ----
+    band_kernels(scene, state, cfg, flythrough.MODE_CONFIGS["wireframe"],
+                 kernels)
+    device_state("before phase 21")
+    whole = banded_frames(scene, state, kernels, card)
+    band_times(scene, state, card)
+    device_state("after phase 22")
+    forms = [("gloo", 2, "2 gloo ranks sharing card 0")]
+    if torch.cuda.device_count() >= 2:
+        forms.append(("nccl", 2, "2 NCCL ranks, a card each"))
+    else:
+        print("phase 23 NCCL: not run, this host has one card", flush=True)
+    distributed_form(whole, card, forms)
+    from kanirenderer_tpu_torch.parallel.mesh import dryrun_multichip
+    dryrun_multichip(2)
     if not (kernels["rasterize_depth"]["launches_loop_steady"]
             and kernels["rasterize_pixels"]["launches_loop_steady"]
             and kernels["rasterize_pixels_wireframe"]["launches_events"]):
@@ -880,7 +1446,9 @@ def main() -> int:
              "library_ms")
     rows = []
     for name, k in kernels.items():
-        k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"))
+        if "bytes" in k:    # the band rows carry their bands' mean bound
+            k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"),
+                                                 k.pop("ops"))
         # No single PyTorch call rasterizes triangles.
         k.update(name=name, route="cuda", library_ms=None)
         if not k.get("launches"):
@@ -889,8 +1457,8 @@ def main() -> int:
         # row the launches of the application path's runs (phases 14, 15
         # and 17).
         rows.append({f: k[f] for f in (*order, *(
-            f for f in k if f.endswith("_wireframe")
-            or f.startswith("launches_")))})
+            f for f in k if f.endswith("_wireframe") or f == "bands"
+            or f.startswith(("launches_", "ms_")) and f not in order))})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,14 @@
 // warp drop the hits whose edges exclude its 8 x 4 patch of the tile (an exact
 // test, raster_common.cuh edge_max), keeps a running minimum in a register
 // and merges it into the map with atomicMin.
+// A row band (the banded fresh shadow pass, raster_pallas.py:1304-1344 with
+// band_h and y0) is the same launch on the band's slice of the entry list:
+// entries are sorted by tile and tiles are numbered row-major, so the tile
+// rows that meet the band are one run of entries.  Texels are evaluated at
+// their global centres and stored at band row py - y0 of a (band_h, width)
+// map, so a band's texels are the full map's bit for bit (the TPU kernel
+// re-anchors the planes to the band instead, c <- c + b*y0, which rounds
+// differently).
 // Depths are in [-0.0, 1.0], where the order of the floats is the order of
 // their bits as signed integers, so the merged minimum is exact and does
 // not depend on the order of the blocks.  Entries dropped by the per-tile
@@ -45,7 +53,8 @@ __global__ void __launch_bounds__(1024, 1)
                         const int* __restrict__ pair_tile,
                         const int* __restrict__ chunk, int entries,
                         float* __restrict__ out, int width, int height,
-                        int tiles_x, int tile_w, int tile_h) {
+                        int y0, int band_h, int tiles_x, int tile_w,
+                        int tile_h) {
   __shared__ Stage s;
   __shared__ int s_tile[kSlice], s_chunk[kSlice];
   const int i0 = blockIdx.x * kSlice;
@@ -84,9 +93,11 @@ __global__ void __launch_bounds__(1024, 1)
             float z;
             if (kani::covers(t, X, Y, &z)) acc = fminf(acc, z);
           });
-      if (px < width && py < height && acc < 1.0f) {
-        atomicMin(reinterpret_cast<int*>(out + (size_t)py * width + px),
-                  __float_as_int(acc));
+      if (px < width && py < height && py >= y0 && py < y0 + band_h &&
+          acc < 1.0f) {
+        atomicMin(
+            reinterpret_cast<int*>(out + (size_t)(py - y0) * width + px),
+            __float_as_int(acc));
       }
     }
     j0 = j1;
@@ -95,18 +106,20 @@ __global__ void __launch_bounds__(1024, 1)
 
 }  // namespace
 
-// `out` must hold 1.0 everywhere; `entries` is the length of pair_tile and
-// chunk.
+// `out` holds rows [y0, y0 + band_h) of the width x height map and must hold
+// 1.0 everywhere; `entries` is the length of pair_tile and chunk (the whole
+// list, or the run of the tile rows that meet the band).
 extern "C" int kani_rasterize_depth(const float* setup, const float* bbox,
                                     const int* pair_tile, const int* chunk,
                                     int entries, float* out, int width,
-                                    int height, int tiles_x, int tile_w,
-                                    int tile_h, void* stream) {
+                                    int height, int y0, int band_h,
+                                    int tiles_x, int tile_w, int tile_h,
+                                    void* stream) {
   if (entries > 0) {
     raster_depth_kernel<<<(entries + kSlice - 1) / kSlice, tile_w * tile_h, 0,
                           (cudaStream_t)stream>>>(
         setup, reinterpret_cast<const float4*>(bbox), pair_tile, chunk,
-        entries, out, width, height, tiles_x, tile_w, tile_h);
+        entries, out, width, height, y0, band_h, tiles_x, tile_w, tile_h);
   }
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,17 @@
 // v0 + d1*w1 + d2*w2 and the material lanes (blk_base = hi*65536 + lo).
 // Uncovered pixels take the reference's defaults (:922-929).
 //
+// Row bands (B1: rasterize_pixels with band_h, y0 and y_stride,
+// :1215-1301): the outputs hold band_h rows, and band row r is the global
+// row y0 + (r / tile_h) * y_stride * tile_h + r % tile_h.  A contiguous band
+// (y_stride 1) is binned on its own grid; an interleaved one (y_stride n,
+// y0 = k * tile_h) takes tile rows k, k + n, ... of the full grid's bins.
+// Planes, bbox cull and warp rectangles take global coordinates, only the
+// stores take band rows, so a band's pixels are the full frame's bit for bit
+// (the (z, id) tournament does not depend on the order of the chunks).  Band
+// rows at or past `height` (the padding of an interleaved band) get the
+// defaults.  The TPU kernel re-anchors the planes instead (c <- c + b*y0).
+//
 // What bounds it on this card: bytes.  The 23 planar outputs are 96 bytes
 // per pixel (199 MB of the 281 MB a 1920x1080 frame has to move) and
 // phase 2 reads 304 bytes of record per covered pixel, mostly from L2 since
@@ -80,16 +91,18 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     const float4* __restrict__ bbox, const int* __restrict__ tile_start,
     const int* __restrict__ tile_count, const int* __restrict__ chunk,
     float* __restrict__ z_out, float* __restrict__ vary_out,
-    int* __restrict__ int_out, int width, int height, int tiles_x, int tile_w,
-    int tile_h, float wire_thresh) {
+    int* __restrict__ int_out, int width, int height, int band_h, int y0,
+    int y_stride, int tiles_x, int tile_w, int tile_h, float wire_thresh) {
   __shared__ kani::TileStage s;
   const int tile = blockIdx.x;
+  const int row = tile / tiles_x;  // the band's tile row
   const int tx0 = (tile % tiles_x) * tile_w;
-  const int ty0 = (tile / tiles_x) * tile_h;
+  const int ty0 = y0 + row * y_stride * tile_h;  // its global first row
   int lx, ly;
   kani::tile_pixel(tile_w, tile_h, &lx, &ly);
   const int px = tx0 + lx;
-  const int py = ty0 + ly;
+  const int py = ty0 + ly;            // global row
+  const int by = row * tile_h + ly;   // band row
   const float X = (float)px + 0.5f;
   const float Y = (float)py + 0.5f;
   const kani::Rect rect = kani::warp_rect(px, py);
@@ -107,12 +120,16 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
   // fills whole 32-byte sectors: a lane with no winner loads nothing and
   // stores the defaults.  (Two paths within a warp would write every sector
   // of the 23 planes twice, half filled each time.)
-  const bool inside = px < width && py < height;
+  if (py >= height) {  // padding rows of an interleaved band: empty
+    best_z = 1.0f;
+    best = -1;
+  }
+  const bool inside = px < width && by < band_h;
   const bool won = inside && best >= 0;
   const bool any_won = __any_sync(0xffffffffu, won);
   if (!inside) return;
-  const size_t hw = (size_t)width * height;
-  const size_t p = (size_t)py * width + px;
+  const size_t hw = (size_t)width * band_h;
+  const size_t p = (size_t)by * width + px;
   z_out[p] = best_z;
   if (!any_won) {
     for (int c = 0; c < kUsed; ++c) vary_out[c * hw + p] = 0.f;
@@ -183,8 +200,8 @@ template <bool kWire>
 int launch(const float* records, const float* setup, const float* bbox,
            const int* tile_start, const int* tile_count, const int* chunk,
            float* z_out, float* vary_out, int* int_out, int width, int height,
-           int tiles_x, int num_tiles, int tile_w, int tile_h,
-           float wire_thresh, void* stream) {
+           int band_h, int y0, int y_stride, int tiles_x, int num_tiles,
+           int tile_w, int tile_h, float wire_thresh, void* stream) {
   if (num_tiles > 0) {
     const int threads = tile_w * tile_h;
     auto kernel = threads <= 256
@@ -193,33 +210,38 @@ int launch(const float* records, const float* setup, const float* bbox,
                       : raster_pixels_kernel<kWire, 1024, 1>;
     kernel<<<num_tiles, threads, 0, (cudaStream_t)stream>>>(
         records, setup, reinterpret_cast<const float4*>(bbox), tile_start,
-        tile_count, chunk, z_out, vary_out, int_out, width, height, tiles_x,
-        tile_w, tile_h, wire_thresh);
+        tile_count, chunk, z_out, vary_out, int_out, width, height, band_h, y0,
+        y_stride, tiles_x, tile_w, tile_h, wire_thresh);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The outputs hold band_h rows of the width x height frame (band_h = height,
+// y0 = 0, y_stride = 1 for the whole frame).
 extern "C" int kani_rasterize_pixels(const float* records, const float* setup,
                                      const float* bbox, const int* tile_start,
                                      const int* tile_count, const int* chunk,
                                      float* z_out, float* vary_out,
                                      int* int_out, int width, int height,
+                                     int band_h, int y0, int y_stride,
                                      int tiles_x, int num_tiles, int tile_w,
                                      int tile_h, void* stream) {
   return launch<false>(records, setup, bbox, tile_start, tile_count, chunk,
-                       z_out, vary_out, int_out, width, height, tiles_x,
-                       num_tiles, tile_w, tile_h, 0.f, stream);
+                       z_out, vary_out, int_out, width, height, band_h, y0,
+                       y_stride, tiles_x, num_tiles, tile_w, tile_h, 0.f,
+                       stream);
 }
 
 extern "C" int kani_rasterize_pixels_wireframe(
     const float* records, const float* setup, const float* bbox,
     const int* tile_start, const int* tile_count, const int* chunk,
     float* z_out, float* vary_out, int* int_out, int width, int height,
-    int tiles_x, int num_tiles, int tile_w, int tile_h, float wire_thresh,
-    void* stream) {
+    int band_h, int y0, int y_stride, int tiles_x, int num_tiles, int tile_w,
+    int tile_h, float wire_thresh, void* stream) {
   return launch<true>(records, setup, bbox, tile_start, tile_count, chunk,
-                      z_out, vary_out, int_out, width, height, tiles_x,
-                      num_tiles, tile_w, tile_h, wire_thresh, stream);
+                      z_out, vary_out, int_out, width, height, band_h, y0,
+                      y_stride, tiles_x, num_tiles, tile_w, tile_h,
+                      wire_thresh, stream);
 }

@@ -16,6 +16,11 @@ of by tiles (csrc/raster_depth.cu).
 
 Sizing the expansion needs the number of (tile, chunk) pairs on the host:
 that is the one device-to-host synchronisation of a binning call.
+
+Row bands (passes/frame.render_band): a contiguous band is binned on its
+own grid, whose tile row j covers the global rows [y0 + j·tile_h, …)
+(``bin_tiles(y0=…)``); an interleaved band takes its tile rows of the
+full grid's bins (``interleave_bins``), sharing their ``chunk`` array.
 """
 
 from __future__ import annotations
@@ -43,9 +48,12 @@ class ChunkBins(NamedTuple):
 
 
 def bin_tiles(bbox: Tensor, width: int, height: int, tile_w: int,
-              tile_h: int, cap: int) -> ChunkBins:
+              tile_h: int, cap: int, y0: int = 0) -> ChunkBins:
     """Bin chunks to tiles from per-triangle (T, 4) pixel bboxes
-    (ops/vertex.TriangleSetup.bbox; invalid triangles carry empty boxes)."""
+    (ops/vertex.TriangleSetup.bbox; invalid triangles carry empty boxes).
+    ``y0``: the global row of the grid's first row, for the grid of a
+    contiguous row band of ``height`` rows (the bboxes are integers, so
+    the shift is exact)."""
     dev = bbox.device
     T = bbox.shape[0]
     C = T // CHUNK_SIZE
@@ -70,9 +78,9 @@ def bin_tiles(bbox: Tensor, width: int, height: int, tile_w: int,
                            .to(torch.int64), 0, n - 1)
 
     tx0 = tile_of(cx0, tile_w, tiles_x)
-    ty0 = tile_of(cy0, tile_h, tiles_y)
+    ty0 = tile_of(cy0 - y0, tile_h, tiles_y)
     tx1 = tile_of(cx1 - 1.0, tile_w, tiles_x)
-    ty1 = tile_of(cy1 - 1.0, tile_h, tiles_y)
+    ty1 = tile_of(cy1 - 1.0 - y0, tile_h, tiles_y)
     span_w = tx1 - tx0 + 1
     span = torch.where(nonempty, span_w * (ty1 - ty0 + 1), 0)
 
@@ -86,9 +94,10 @@ def bin_tiles(bbox: Tensor, width: int, height: int, tile_w: int,
     txi = tx0[cid] + j % sw
     tyi = ty0[cid] + torch.div(j, sw, rounding_mode="floor")
 
-    # Keep a pair when a subbatch bbox of the chunk overlaps the tile.
+    # Keep a pair when a subbatch bbox of the chunk overlaps the tile
+    # (global tile bounds).
     px0 = (txi * tile_w).to(torch.float32)[:, None]
-    py0 = (tyi * tile_h).to(torch.float32)[:, None]
+    py0 = (tyi * tile_h + y0).to(torch.float32)[:, None]
     hit = ((sx0[cid] < px0 + tile_w) & (sx1[cid] > px0)
            & (sy0[cid] < py0 + tile_h) & (sy1[cid] > py0)).any(1)
     sentinel = num_tiles * C
@@ -110,3 +119,30 @@ def bin_tiles(bbox: Tensor, width: int, height: int, tile_w: int,
         pair_tile=torch.where(kept, tile, -1).to(torch.int32),
         overflow=torch.clamp(raw - cap, min=0).sum().to(torch.int32),
         tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+
+
+def interleave_bins(bins: ChunkBins, k: int, n: int) -> ChunkBins:
+    """Band k of n interleaved row bands of the full grid's ``bins``: its
+    tile row j is the full grid's tile row j·n + k (the counterpart of
+    ``_slice_stream_bins``, kanirenderer_tpu/ops/raster_pallas.py:1202).
+    ``start``/``count`` are gathered; rows past the full grid (the padding
+    of the last band) are empty.  ``chunk`` is shared and ``pair_tile``
+    still names full-grid tiles.  ``overflow`` is this band's share, so
+    the bands' overflows sum to the full grid's."""
+    tx = bins.tiles_x
+    J = -(-bins.tiles_y // n)
+    rows = torch.arange(J, device=bins.start.device) * n + k
+    live = rows < bins.tiles_y
+    tiles = (torch.clamp(rows, max=bins.tiles_y - 1)[:, None] * tx
+             + torch.arange(tx, device=rows.device)).reshape(-1)
+    live = live.repeat_interleave(tx)
+    # Entries per tile before the cap: the distance to the next tile's
+    # start; the last tile's ends at the last entry with a chunk.
+    end = torch.cat([bins.start[1:],
+                     (bins.chunk >= 0).sum().to(torch.int32)[None]])
+    dropped = end - bins.start - bins.count
+    return bins._replace(
+        start=torch.where(live, bins.start[tiles], 0),
+        count=torch.where(live, bins.count[tiles], 0),
+        overflow=torch.where(live, dropped[tiles], 0).sum().to(torch.int32),
+        tiles_y=J)

@@ -21,6 +21,14 @@ a CPU tensor it runs its plain PyTorch version (``*_plain``), which
 computes the same function with the same floating-point order and serves
 as the oracle the kernels are checked against on the card.
 
+Row bands: K1 takes ``y0`` and ``band_h`` (map rows [y0, y0 + band_h),
+from the full map's bins), K2/K2w ``y0``, ``y_stride`` and ``band_h`` (band
+row r is global row y0 + (r // tile_h)·y_stride·tile_h + r % tile_h, from
+the band's bins: ops/binning ``bin_tiles(y0=…)`` or ``interleave_bins``).
+Every plane is evaluated at the global pixel centre, so a band's values
+are the full raster's bit for bit.  A call with band operands counts its
+launch under the wrapper's name + ``_band``.
+
 Wireframe coverage keeps a pixel when it passes the five-plane coverage
 and its centre lies within ``wire_thresh`` pixels of the nearest edge,
 d = (a·X + c)·g + (b·Y)·g with g = 1/sqrt(a² + b² + 1e-30), the order of
@@ -64,7 +72,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 # Kernel launches since the last reset, by wrapper name.
 launch_counts = {"rasterize_depth": 0, "rasterize_pixels": 0,
-                 "rasterize_pixels_wireframe": 0, "rasterize_visibility": 0}
+                 "rasterize_pixels_wireframe": 0, "rasterize_visibility": 0,
+                 "rasterize_depth_band": 0, "rasterize_pixels_band": 0,
+                 "rasterize_pixels_wireframe_band": 0}
 
 _lib = None
 build_info: dict = {}
@@ -134,10 +144,10 @@ def load_kernels() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build()))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.kani_rasterize_depth.argtypes = \
-            [ptr] * 4 + [i32, ptr] + [i32] * 5 + [ptr]
-        lib.kani_rasterize_pixels.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+            [ptr] * 4 + [i32, ptr] + [i32] * 7 + [ptr]
+        lib.kani_rasterize_pixels.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
         lib.kani_rasterize_pixels_wireframe.argtypes = \
-            [ptr] * 9 + [i32] * 6 + [f32, ptr]
+            [ptr] * 9 + [i32] * 9 + [f32, ptr]
         lib.kani_rasterize_visibility.argtypes = \
             [ptr] * 8 + [i32] * 7 + [f32, ptr]
         for fn in (lib.kani_rasterize_depth, lib.kani_rasterize_pixels,
@@ -187,52 +197,88 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def rasterize_depth(setup: Tensor, bbox: Tensor, bins: ChunkBins,
-                    dim: int) -> Tensor:
+def band_entries(bins: ChunkBins, bands) -> list:
+    """For each (y0, band_h) of ``bands``, [e0, e1): the run of bin
+    entries of the tile rows that meet rows [y0, y0 + band_h).  Entries
+    are sorted by tile and tiles are numbered row-major, so the run starts
+    at the first tile of its first row; the last tile row's run ends at
+    the last entry with a chunk (the padding after it is left out).  The
+    bounds of all the bands are read back in one synchronisation."""
+    tiles = []
+    for y0, band_h in bands:
+        r1 = min(-(-(y0 + band_h) // bins.tile_h), bins.tiles_y)
+        tiles += [y0 // bins.tile_h * bins.tiles_x, r1 * bins.tiles_x]
+    end = (bins.chunk >= 0).sum().to(bins.start.dtype).reshape(1)
+    at = torch.cat([bins.start, end])[tiles].tolist()
+    return list(zip(at[0::2], at[1::2]))
+
+
+def rasterize_depth(setup: Tensor, bbox: Tensor, bins: ChunkBins, dim: int,
+                    y0: int = 0, band_h: int | None = None,
+                    entries: tuple | None = None) -> Tensor:
     """K1: (dim, dim) depth map, the minimum covered depth, 1.0 where
     nothing covers.  ``setup``/``bbox``: (T, 16)/(T, 4) f32 from
-    ops/vertex.TriangleSetup."""
+    ops/vertex.TriangleSetup.  With ``band_h``: map rows [y0, y0 + band_h)
+    only, a (band_h, dim) band of the same map, from the full map's
+    ``bins``; ``entries``: the band's ``band_entries``, where the caller
+    has them (without, the wrapper reads them back)."""
+    band_h = dim if band_h is None else band_h
     if setup.device.type == "cpu":
-        return rasterize_depth_plain(setup, bbox, bins, dim)
+        return rasterize_depth_plain(setup, bbox, bins, dim, y0, band_h)
     _check_launch(setup, NS, bbox, bins, dim, dim)
+    if not 0 <= y0 < y0 + band_h <= dim:
+        raise ValueError(f"rows [{y0}, {y0 + band_h}) are not in the map")
     lib = load_kernels()
     # The kernel merges into a cleared map with atomicMin.
-    out = torch.ones((dim, dim), dtype=torch.float32, device=setup.device)
+    out = torch.ones((band_h, dim), dtype=torch.float32, device=setup.device)
+    whole = band_h == dim
+    if entries is None:
+        entries = (0, bins.chunk.shape[0]) if whole \
+            else band_entries(bins, [(y0, band_h)])[0]
+    e0, e1 = entries
     err = lib.kani_rasterize_depth(
-        setup.data_ptr(), bbox.data_ptr(), bins.pair_tile.data_ptr(),
-        bins.chunk.data_ptr(), bins.chunk.shape[0], out.data_ptr(), dim, dim,
-        bins.tiles_x, bins.tile_w, bins.tile_h, _stream())
-    launch_counts["rasterize_depth"] += 1
+        setup.data_ptr(), bbox.data_ptr(), bins.pair_tile[e0:].data_ptr(),
+        bins.chunk[e0:].data_ptr(), e1 - e0, out.data_ptr(), dim, dim, y0,
+        band_h, bins.tiles_x, bins.tile_w, bins.tile_h, _stream())
+    name = "rasterize_depth" if whole else "rasterize_depth_band"
+    launch_counts[name] += 1
     if err:
-        raise RuntimeError(f"rasterize_depth launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
 
 
 def rasterize_pixels(records: Tensor, setup: Tensor, bbox: Tensor,
                      bins: ChunkBins, width: int, height: int,
-                     wireframe: bool = False,
-                     wire_thresh: float = 0.7) -> PixelBuffer:
+                     wireframe: bool = False, wire_thresh: float = 0.7,
+                     y0: int = 0, y_stride: int = 1,
+                     band_h: int | None = None) -> PixelBuffer:
     """K2 (K2w with ``wireframe``): visibility + interpolation →
     PixelBuffer (with ``tid``).  ``records``: (T, 76) f32 from
     ops/interpolate.build_tri_records_corners; ``setup``/``bbox``: the
     (T, 16)/(T, 4) f32 rows of the same triangles' TriangleSetup (the
     visibility phase reads its planes from ``setup``, whose lanes 0:12
-    equal the records')."""
+    equal the records').  With ``band_h``: the band_h rows of a row band
+    of the width × height frame (module docstring), from the band's
+    ``bins``."""
+    band_h = height if band_h is None else band_h
     if records.device.type == "cpu":
         return rasterize_pixels_plain(records, setup, bbox, bins, width,
-                                      height, wireframe, wire_thresh)
-    _check_launch(records, FAT_LANES, bbox, bins, width, height)
+                                      height, wireframe, wire_thresh, y0,
+                                      y_stride, band_h)
+    _check_launch(records, FAT_LANES, bbox, bins, width, band_h)
     _check(setup, "setup", (records.shape[0], NS), torch.float32,
            records.device)
+    if y0 < 0 or y_stride < 1:
+        raise ValueError(f"band y0 {y0}, y_stride {y_stride}")
     lib = load_kernels()
     dev = records.device
-    z = torch.empty((height, width), dtype=torch.float32, device=dev)
-    vary = torch.empty((USED, height, width), dtype=torch.float32, device=dev)
-    ints = torch.empty((6, height, width), dtype=torch.int32, device=dev)
+    z = torch.empty((band_h, width), dtype=torch.float32, device=dev)
+    vary = torch.empty((USED, band_h, width), dtype=torch.float32, device=dev)
+    ints = torch.empty((6, band_h, width), dtype=torch.int32, device=dev)
     args = [*(t.data_ptr() for t in (records, setup, bbox, bins.start,
                                       bins.count, bins.chunk, z, vary, ints)),
-            width, height, bins.tiles_x, bins.tiles_x * bins.tiles_y,
-            bins.tile_w, bins.tile_h]
+            width, height, band_h, y0, y_stride, bins.tiles_x,
+            bins.tiles_x * bins.tiles_y, bins.tile_w, bins.tile_h]
     if wireframe:
         name = "rasterize_pixels_wireframe"
         err = lib.kani_rasterize_pixels_wireframe(*args, wire_thresh,
@@ -240,6 +286,8 @@ def rasterize_pixels(records: Tensor, setup: Tensor, bbox: Tensor,
     else:
         name = "rasterize_pixels"
         err = lib.kani_rasterize_pixels(*args, _stream())
+    if (y0, y_stride, band_h) != (0, 1, height):
+        name += "_band"
     launch_counts[name] += 1
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -313,34 +361,51 @@ def _pairs(bins: ChunkBins):
     return tile, chunk
 
 
-def _bbox_hits(bbox: Tensor, tile: Tensor, chunk: Tensor, bins: ChunkBins):
+def _tile_origin(tile: Tensor, bins: ChunkBins, y0: int, y_stride: int):
+    """Global (x, y) of each tile's first pixel: the bins' tile row j is
+    global rows y0 + j·y_stride·tile_h onwards."""
+    return (tile % bins.tiles_x * bins.tile_w,
+            y0 + tile // bins.tiles_x * (y_stride * bins.tile_h))
+
+
+def _bbox_hits(bbox: Tensor, tile: Tensor, chunk: Tensor, bins: ChunkBins,
+               y0: int = 0, y_stride: int = 1):
     """(triangle ids (P, 128), hit (P, 128)): the triangles of each pair's
     chunk and whether their bbox meets the pair's tile, the kernels' cull."""
     tw, th = bins.tile_w, bins.tile_h
     tri = chunk[:, None] * CHUNK_SIZE \
         + torch.arange(CHUNK_SIZE, device=bbox.device)
     b = bbox[tri]
-    tx0 = (tile % bins.tiles_x * tw).to(torch.float32)[:, None]
-    ty0 = (tile // bins.tiles_x * th).to(torch.float32)[:, None]
+    tx0, ty0 = (o.to(torch.float32)[:, None]
+                for o in _tile_origin(tile, bins, y0, y_stride))
     return tri, (b[..., 0] < tx0 + tw) & (b[..., 2] > tx0) \
         & (b[..., 1] < ty0 + th) & (b[..., 3] > ty0)
 
 
 def _eval_pairs(rows: Tensor, bbox: Tensor, tile: Tensor, chunk: Tensor,
                 bins: ChunkBins, width: int, height: int,
-                wire_thresh: float | None = None):
+                wire_thresh: float | None = None, y0: int = 0,
+                y_stride: int = 1, out_y0: int = 0,
+                out_h: int | None = None):
     """Coverage and depth of every triangle of each pair's chunk at every
     pixel of its tile → (covered (P,128,px), z (P,128,px), pixel (P,px)),
-    pixel = row-major index, or width·height outside the raster.  With
-    ``wire_thresh``, coverage is the wireframe one."""
+    pixel = row-major index into the output of rows [out_y0, out_y0 +
+    out_h) of the bins' grid (default: all ``height``), or width·out_h
+    outside it or outside the width × height raster.  The grid's tile row
+    j lies at global rows y0 + j·y_stride·tile_h (``_tile_origin``), where
+    the planes are evaluated.  With ``wire_thresh``, coverage is the
+    wireframe one."""
     dev = rows.device
     tw, th = bins.tile_w, bins.tile_h
+    out_h = height if out_h is None else out_h
     lpix = torch.arange(tw * th, device=dev)
-    x = (tile % bins.tiles_x * tw)[:, None] + lpix % tw
-    y = (tile // bins.tiles_x * th)[:, None] + lpix // tw
+    tx0, ty0 = _tile_origin(tile, bins, y0, y_stride)
+    x = tx0[:, None] + lpix % tw
+    y = ty0[:, None] + lpix // tw
+    row = (tile // bins.tiles_x * th - out_y0)[:, None] + lpix // tw
     X = (x.to(torch.float32) + 0.5)[:, None, :]
     Y = (y.to(torch.float32) + 0.5)[:, None, :]
-    tri, hit = _bbox_hits(bbox, tile, chunk, bins)
+    tri, hit = _bbox_hits(bbox, tile, chunk, bins, y0, y_stride)
     r = rows[:, :12][tri]                                 # (P, 128, 12)
 
     def plane(k):  # (a·X + c) + b·Y, the kernels' order
@@ -359,34 +424,43 @@ def _eval_pairs(rows: Tensor, bbox: Tensor, tile: Tensor, chunk: Tensor,
 
         d = torch.minimum(torch.minimum(dist(0), dist(3)), dist(6))
         covered &= d <= wire_thresh
-    inside = (x < width) & (y < height)
-    pixel = torch.where(inside, y * width + x, width * height)
+    inside = (x < width) & (y < height) & (row >= 0) & (row < out_h)
+    pixel = torch.where(inside, row * width + x, width * out_h)
     return covered, z, pixel
 
 
 def rasterize_depth_plain(setup: Tensor, bbox: Tensor, bins: ChunkBins,
-                          dim: int) -> Tensor:
+                          dim: int, y0: int = 0,
+                          band_h: int | None = None) -> Tensor:
     """Plain PyTorch K1 (same inputs and result as ``rasterize_depth``)."""
-    out = torch.ones(dim * dim + 1, dtype=torch.float32, device=setup.device)
+    band_h = dim if band_h is None else band_h
+    out = torch.ones(band_h * dim + 1, dtype=torch.float32,
+                     device=setup.device)
     tile, chunk = _pairs(bins)
+    ty0 = tile // bins.tiles_x * bins.tile_h
+    meets = (ty0 < y0 + band_h) & (ty0 + bins.tile_h > y0)
+    tile, chunk = tile[meets], chunk[meets]
     for s in range(0, tile.shape[0], PAIR_BATCH):
         cov, z, pix = _eval_pairs(setup, bbox, tile[s:s + PAIR_BATCH],
-                                  chunk[s:s + PAIR_BATCH], bins, dim, dim)
+                                  chunk[s:s + PAIR_BATCH], bins, dim, dim,
+                                  out_y0=y0, out_h=band_h)
         zc = torch.where(cov, z, 1.0).amin(1)
         out.scatter_reduce_(0, pix.reshape(-1), zc.reshape(-1), "amin")
-    return out[:-1].reshape(dim, dim)
+    return out[:-1].reshape(band_h, dim)
 
 
 def _tournament(rows: Tensor, bbox: Tensor, bins: ChunkBins, width: int,
-                height: int, wire_thresh: float | None):
+                height: int, wire_thresh: float | None, y0: int = 0,
+                y_stride: int = 1, band_h: int | None = None):
     """Phase 1 of K2/K3: per pixel the lexicographic min of (z, triangle
-    id) over candidates with z < 1 → (tid, z), each (H·W,), −1 and 1.0
-    where nothing wins.  Each pair reduces its chunk to (z, lowest id at
-    that z), then the pixel minimum of z is scattered and the lowest id
+    id) over candidates with z < 1 → (tid, z), each (band_h·W,), −1 and
+    1.0 where nothing wins.  Each pair reduces its chunk to (z, lowest id
+    at that z), then the pixel minimum of z is scattered and the lowest id
     among the pairs that reach it — the strict-< ascending tournament of
     the kernels."""
     dev = rows.device
-    hw = width * height
+    band_h = height if band_h is None else band_h
+    hw = width * band_h
     tile, chunk = _pairs(bins)
     zbuf = torch.ones(hw + 1, dtype=torch.float32, device=dev)
     kept = []
@@ -394,7 +468,8 @@ def _tournament(rows: Tensor, bbox: Tensor, bins: ChunkBins, width: int,
     for s in range(0, tile.shape[0], PAIR_BATCH):
         ch = chunk[s:s + PAIR_BATCH]
         cov, z, pix = _eval_pairs(rows, bbox, tile[s:s + PAIR_BATCH], ch,
-                                  bins, width, height, wire_thresh)
+                                  bins, width, height, wire_thresh, y0,
+                                  y_stride, out_h=band_h)
         zc = torch.where(cov & (z < 1.0), z, 2.0)
         pz = zc.amin(1)
         k = torch.where(zc == pz[:, None], lane, CHUNK_SIZE).amin(1)
@@ -410,28 +485,35 @@ def _tournament(rows: Tensor, bbox: Tensor, bins: ChunkBins, width: int,
     return tid, zbuf[:-1]
 
 
-def _pixel_centres(width: int, height: int, device):
+def _pixel_centres(width: int, height: int, device, y0: int = 0,
+                   y_stride: int = 1, tile_h: int = 1):
+    """Global pixel centres of the rows of a band: row r is global row
+    y0 + (r // tile_h)·y_stride·tile_h + r % tile_h."""
     p = torch.arange(width * height, device=device)
     X = (p % width).to(torch.float32) + 0.5
-    Y = torch.div(p, width, rounding_mode="floor").to(torch.float32) + 0.5
-    return X, Y
+    r = torch.div(p, width, rounding_mode="floor")
+    y = y0 + r // tile_h * (y_stride * tile_h) + r % tile_h
+    return X, y.to(torch.float32) + 0.5
 
 
 def rasterize_pixels_plain(records: Tensor, setup: Tensor, bbox: Tensor,
                            bins: ChunkBins, width: int, height: int,
-                           wireframe: bool = False,
-                           wire_thresh: float = 0.7) -> PixelBuffer:
+                           wireframe: bool = False, wire_thresh: float = 0.7,
+                           y0: int = 0, y_stride: int = 1,
+                           band_h: int | None = None) -> PixelBuffer:
     """Plain PyTorch K2/K2w (same inputs and result as
     ``rasterize_pixels``): the phase-1 tournament on the setup rows, then
     phase 2 on the records."""
     dev = records.device
+    band_h = height if band_h is None else band_h
     tid, z_out = _tournament(setup, bbox, bins, width, height,
-                             wire_thresh if wireframe else None)
+                             wire_thresh if wireframe else None, y0,
+                             y_stride, band_h)
 
     # Phase 2: interpolate the winner's record at the pixel centre.
     covered = tid >= 0
     rec = records[tid.clamp(min=0).to(torch.int64)]        # (HW, 76)
-    X, Y = _pixel_centres(width, height, dev)
+    X, Y = _pixel_centres(width, band_h, dev, y0, y_stride, bins.tile_h)
 
     def plane(k):  # ((a·X) + (b·Y)) + c, the reference's phase-2 order
         return (rec[:, k] * X + rec[:, k + 1] * Y) + rec[:, k + 2]
@@ -449,9 +531,9 @@ def rasterize_pixels_plain(records: Tensor, setup: Tensor, bbox: Tensor,
     default = torch.tensor([0, 1, 1, 0, 1], dtype=torch.int32,
                            device=dev)[:, None]
     ints = torch.cat([torch.where(covered, ints, default), tid[None]])
-    return _pixel_buffer(z_out.reshape(height, width),
-                         vary.T.reshape(USED, height, width),
-                         ints.reshape(6, height, width), bins)
+    return _pixel_buffer(z_out.reshape(band_h, width),
+                         vary.T.reshape(USED, band_h, width),
+                         ints.reshape(6, band_h, width), bins)
 
 
 def rasterize_plain(setup: Tensor, bbox: Tensor, bins: ChunkBins, width: int,

@@ -9,6 +9,8 @@ Less against a buffer cleared to 1.0, so the lowest triangle id wins a
 tie.  Planes are evaluated as a·X + b·Y + c, the reference oracle's order.
 Wireframe coverage uses the reference oracle's edge distance
 l / max(sqrt(a² + b²), 1e-20) (raster_xla.py:98-105), not the kernels'.
+Row bands as in the reference oracle: ``y_offset`` (and, interleaved,
+``y_stride`` with ``tile_h``) place the rows at their global centres.
 """
 
 from __future__ import annotations
@@ -39,9 +41,17 @@ def _planes(chunk: Tensor, X: Tensor, Y: Tensor):
     return l0, l1, l2, z, covered
 
 
-def _grid(width: int, height: int, device):
+def _grid(width: int, height: int, device, y0: float = 0.0,
+          y_stride: int = 1, tile_h: int = 0):
+    """Pixel centres (1, W) and (H, 1); row r of an interleaved band is
+    global row (r // tile_h)·y_stride·tile_h + r % tile_h + y0 (the
+    reference's ``_pixel_grid``)."""
     xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5
-    ys = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    r = torch.arange(height, dtype=torch.float32, device=device)
+    if y_stride > 1:
+        r = torch.div(r, tile_h, rounding_mode="floor") \
+            * (y_stride * tile_h) + r % tile_h
+    ys = r + 0.5 + y0
     return xs[None, :], ys[:, None]
 
 
@@ -52,13 +62,16 @@ def _edge_dist(l: Tensor, chunk: Tensor, k: int) -> Tensor:
 
 def rasterize_xla(setup: Tensor, width: int, height: int,
                   wireframe: bool = False, wire_thresh: float = 0.7,
-                  batch: int = 16) -> VisBuffer:
+                  batch: int = 16, y_offset: float = 0.0, y_stride: int = 1,
+                  tile_h: int = 0) -> VisBuffer:
     """Visibility buffer of the (T, 16) setup rows (ops/vertex.py).
 
     ``wireframe``: keep only pixels within ``wire_thresh`` pixels of an
-    edge of the covering triangle (PolygonMode::Line)."""
+    edge of the covering triangle (PolygonMode::Line).  ``height`` rows
+    from global row ``y_offset`` (a row band; interleaved with
+    ``y_stride`` > 1 and ``tile_h``)."""
     dev = setup.device
-    X, Y = _grid(width, height, dev)
+    X, Y = _grid(width, height, dev, y_offset, y_stride, tile_h)
     zbuf = torch.ones((height, width), dtype=torch.float32, device=dev)
     tri = torch.full((height, width), -1, dtype=torch.int32, device=dev)
     b1 = torch.zeros((height, width), dtype=torch.float32, device=dev)
@@ -87,10 +100,14 @@ def rasterize_xla(setup: Tensor, width: int, height: int,
     return VisBuffer(tri=tri, z=zbuf, bary=torch.stack([b1, b2], -1))
 
 
-def rasterize_depth_xla(setup: Tensor, dim: int, batch: int = 16) -> Tensor:
-    """(dim, dim) depth map: minimum covered depth, 1.0 where uncovered."""
-    X, Y = _grid(dim, dim, setup.device)
-    zbuf = torch.ones((dim, dim), dtype=torch.float32, device=setup.device)
+def rasterize_depth_xla(setup: Tensor, dim: int, batch: int = 16,
+                        band_h: int | None = None,
+                        y_offset: float = 0.0) -> Tensor:
+    """(dim, dim) depth map: minimum covered depth, 1.0 where uncovered;
+    with ``band_h`` only map rows [y_offset, y_offset + band_h)."""
+    H = dim if band_h is None else band_h
+    X, Y = _grid(dim, H, setup.device, y_offset)
+    zbuf = torch.ones((H, dim), dtype=torch.float32, device=setup.device)
     for base in range(0, setup.shape[0], batch):
         *_, z, covered = _planes(setup[base:base + batch], X, Y)
         zbuf = torch.minimum(zbuf, torch.where(covered, z, 1.0).amin(0))

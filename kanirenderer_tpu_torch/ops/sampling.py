@@ -16,7 +16,8 @@
 * ``build_shadow_table`` / ``sample_shadow_pcf`` — 3×3 PCF of comparison
   taps (reference src/lib.rs:760-767, src/shader.wgsl:140-159) from a
   table whose row b is the clamp-padded 11×11 window of 8×8 shadow block
-  b, depth quantized to 16-bit unorm.
+  b, depth quantized to 16-bit unorm; ``build_shadow_table_band`` builds
+  the rows of one row band of the map from the band and its halo rows.
 
 The per-lane weights are separable, so the port forms them as an outer
 product of a row and a column profile and reduces the lanes with a sum;
@@ -194,12 +195,39 @@ def build_shadow_table(shadow_map: Tensor) -> Tensor:
     D = shadow_map.shape[0]
     if D % _B:
         raise ValueError("shadow_dim must be a multiple of 8")
-    q = torch.round(torch.clamp(shadow_map, 0.0, 1.0) * 65535.0)
-    padded = torch.nn.functional.pad(q[None, None], (1, _B, 1, _B),
-                                     mode="replicate")[0, 0]
-    win = padded.unfold(0, _WIN, _B).unfold(1, _WIN, _B)    # (nb, nb, 11, 11)
+    padded = torch.nn.functional.pad(_quantize(shadow_map)[None, None],
+                                     (1, _B, 1, _B), mode="replicate")[0, 0]
+    return _table_from_padded_rows(padded)
+
+
+def _quantize(depth: Tensor) -> Tensor:
+    return torch.round(torch.clamp(depth, 0.0, 1.0) * 65535.0)
+
+
+def _table_from_padded_rows(padded: Tensor) -> Tensor:
+    """Table rows of the 8-row blocks of (8·nbb + 3 or more, D + 9)
+    quantized map rows padded by one row and column before and by the
+    halo after: one row per block, blocks row-major."""
+    win = padded.unfold(0, _WIN, _B).unfold(1, _WIN, _B)  # (nbb, nb, 11, 11)
     t = win.reshape(-1, _WIN * _WIN)
     return torch.nn.functional.pad(t, (0, 128 - _WIN * _WIN))
+
+
+def build_shadow_table_band(band: Tensor, top1: Tensor, bot2: Tensor,
+                            D: int) -> Tensor:
+    """The table rows of a row band of the map (the reference's
+    ``build_shadow_table_band``, kanirenderer_tpu/ops/sampling.py:294):
+    ``band`` (sb_h, D) map rows [y0, y0 + sb_h) with sb_h a multiple of 8,
+    ``top1`` (1, D) the map row above it and ``bot2`` (2, D) the two below
+    (the band's own edge row where the map ends, as the map's replicate
+    padding).  Block row by reads map rows 8·by − 1 … 8·by + 9, so these
+    are ``build_shadow_table``'s rows (sb_h/8 · D/8 of them) exactly."""
+    if band.shape[0] % _B or band.shape[1] != D:
+        raise ValueError(f"a band of {tuple(band.shape)} for a {D}² map")
+    rows = _quantize(torch.cat([top1, band, bot2]))
+    padded = torch.nn.functional.pad(rows[None, None], (1, _B, 0, 0),
+                                     mode="replicate")[0, 0]
+    return _table_from_padded_rows(padded)
 
 
 def _trapezoid(lanes: Tensor, a: Tensor) -> Tensor:

@@ -1,6 +1,6 @@
-"""render_frame — the frame pipeline of every render mode (PyTorch
-counterpart of ``render_band``/``render_frame`` in
-``kanirenderer_tpu/passes/frame.py``, without row bands).
+"""render_band / render_frame — the frame pipeline of every render mode
+(PyTorch counterpart of ``render_band``/``render_frame`` in
+``kanirenderer_tpu/passes/frame.py``).
 
 Per frame, as the reference renders it (src/lib.rs:1707-1914):
 
@@ -38,6 +38,23 @@ back from the device for it; a caller that holds the pose on the host
 computes the matrices itself and passes them as ``uniforms``.  That read
 and the binning calls are the frame's own device-to-host synchronisations.
 ``linearize_depth`` (depth picking) lives with the overlays that share it.
+
+Row bands (``render_band``; parallel/mesh.py drives it): a band is
+``band_h`` screen rows from ``y0``, contiguous or, with ``band_stride`` n,
+tile rows k, k + n, … (y0 = k·tile_h).  The body is split into stage
+functions at its collectives: the geometry (``frame_geometry``) runs once
+for the frame; a fresh shadow map is rasterized in ``shadow_bands`` row
+bands (``shadow_band_map``, K1) and assembled, as its PCF table
+(``shadow_table_band``) or as the map, by one collective
+(``banded_shadow``); then each band's raster (``band_bins``,
+``band_pixels``: K2/K2w), shade (``band_shade``) and surface
+(``band_surface``).  The collectives are concatenations when this
+process holds every band (``comm`` None) and ``comm.all_gather`` when it
+holds one band of a group, so one process and n ranks run the same
+functions.  A band's
+pixels are the full frame's bit for bit: the kernels evaluate every plane
+at the global pixel centre, the PCF table's rows come out the same from a
+band and its halo, and the overlays mask in global rows.
 """
 
 from __future__ import annotations
@@ -53,11 +70,13 @@ from kanirenderer_tpu_torch.core.types import (DebugTexture, FrameState,
                                                RenderConfig, RenderMode,
                                                Scene)
 from kanirenderer_tpu_torch.ops import raster_cuda
-from kanirenderer_tpu_torch.ops.binning import ChunkBins, bin_tiles
+from kanirenderer_tpu_torch.ops.binning import (ChunkBins, bin_tiles,
+                                                interleave_bins)
 from kanirenderer_tpu_torch.ops.interpolate import (PixelBuffer,
                                                     build_tri_records,
                                                     build_tri_records_corners)
-from kanirenderer_tpu_torch.ops.sampling import build_shadow_table
+from kanirenderer_tpu_torch.ops.sampling import (build_shadow_table,
+                                                 build_shadow_table_band)
 from kanirenderer_tpu_torch.ops.vertex import (CornerOutputs, TriangleSetup,
                                                VertexOutputs,
                                                run_vertex_stage,
@@ -101,7 +120,7 @@ class Geometry(NamedTuple):
     shadow_bins: ChunkBins | None
     setup: TriangleSetup
     records: Tensor      # (T, 76) triangle records
-    bins: ChunkBins
+    bins: ChunkBins | None  # the main grid's; None where no stage reads them
 
 
 def frame_uniforms_host(position, yaw, pitch, sun_direction, sun_distance,
@@ -211,10 +230,13 @@ def render_shadow_map(scene: Scene, state: FrameState, config: RenderConfig,
 
 def frame_geometry(scene: Scene, state: FrameState, cfg: RenderConfig,
                    view_wh=None, uniforms=None,
-                   light_space: bool | None = None) -> Geometry:
+                   light_space: bool | None = None,
+                   main_bins: bool = True) -> Geometry:
     """Stages 1-3 without the rasters: uniforms, vertex stage, the setups
     and bins.  ``light_space``: whether to build the light-space setup and
-    bins; by default where the mode has a shadow pass."""
+    bins; by default where the mode has a shadow pass.  ``main_bins``:
+    whether to bin the whole main grid (contiguous row bands bin their
+    own)."""
     vw, vh, aspect = view_extent(cfg, view_wh)
     view_proj, light_vp = uniforms if uniforms is not None \
         else frame_uniforms(state, cfg, scene.device, aspect)
@@ -234,7 +256,7 @@ def frame_geometry(scene: Scene, state: FrameState, cfg: RenderConfig,
             scene.mat_blk_w, scene.mat_tex_size, setup=st.setup,
             extra=scene.tri_extra)
     bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w, cfg.tile_h,
-                     cfg.max_chunks_per_tile)
+                     cfg.max_chunks_per_tile) if main_bins else None
     return Geometry(light_vp=light_vp, vout=vout, shadow_setup=sh.setup,
                     shadow_bins=sh.bins, setup=st, records=records,
                     bins=bins)
@@ -258,12 +280,25 @@ def _shade(scene: Scene, state: FrameState, cfg: RenderConfig,
                              camera_pos=cam_pos, light_vp=light_vp)
 
 
-def _surface(image: Tensor, state: FrameState, cfg: RenderConfig,
-             depth: Tensor, shadow_map: Tensor) -> Tensor:
-    """Planar (3, H, W) linear image → the (H/p, W/p, 3) surface (JAX
-    render_band :427-488): sRGB encode for the LDR surface, clamp for the
-    HDR one; DEBUG overlays composite before the encode, as the
-    reference's overlay pipelines draw linear colours onto the surface."""
+def band_shade(scene: Scene, state: FrameState, cfg: RenderConfig,
+               pix: PixelBuffer, table: Tensor | None,
+               light_vp: Tensor) -> Tensor:
+    """The shade stage of a band: the mode's colour (``_shade``) where a
+    triangle covers, the clear colour elsewhere; (3, rows, W) linear."""
+    clear = torch.tensor(cfg.clear_color, dtype=torch.float32,
+                         device=pix.z.device)[:, None, None]
+    return torch.where(pix.mask[None],
+                       _shade(scene, state, cfg, pix, table, light_vp), clear)
+
+
+def band_surface(image: Tensor, state: FrameState, cfg: RenderConfig,
+                 depth: Tensor, shadow_map: Tensor, row0: int = 0) -> Tensor:
+    """The surface stage of a band: planar (3, H, W) linear image → the
+    (H/p, W/p, 3) surface (JAX render_band :427-488): sRGB encode for the
+    LDR surface, clamp for the HDR one; DEBUG overlays composite before
+    the encode, as the reference's overlay pipelines draw linear colours
+    onto the surface, at global rows from ``row0`` (the first row of a
+    contiguous band)."""
     p = cfg.present_scale
 
     def encode(img):
@@ -286,21 +321,113 @@ def _surface(image: Tensor, state: FrameState, cfg: RenderConfig,
         image = image.permute(1, 2, 0)
         tex = shadow_map if cfg.debug_texture == DebugTexture.SHADOW_MAP \
             else depth
-        image = overlay.debug_texture_quad(image, tex, cfg.znear, cfg.zfar)
-        image = overlay.frame_time_graph(image, state.frame_times_ms)
+        image = overlay.debug_texture_quad_band(image, row0, cfg.height, tex,
+                                                cfg.znear, cfg.zfar)
+        image = overlay.frame_time_graph_band(image, row0, cfg.height,
+                                              state.frame_times_ms)
         return quantize(downscale(encode(image))).contiguous()
     # Encode while planar, elementwise, so it commutes with the transpose.
     image = encode(image).permute(1, 2, 0)
     return quantize(downscale(image)).contiguous()
 
 
-def render_frame(scene: Scene, state: FrameState, config: RenderConfig,
-                 shadow_map: Tensor | None = None,
-                 use_cached_shadow: bool | None = None,
-                 shadow_table: Tensor | None = None,
-                 shadow_geom: ShadowGeometry | None = None,
-                 view_wh=None, uniforms=None) -> FrameOutputs:
-    """Render one frame of ``config.mode``.
+def band_bins(g: Geometry, cfg: RenderConfig, y0: int, band_h: int,
+              band_stride: int = 1) -> ChunkBins:
+    """The main-grid bins of a row band: the band's own grid for a
+    contiguous band, its tile rows of the full grid's ``g.bins`` for an
+    interleaved one, ``g.bins`` for the whole frame."""
+    if (y0, band_h, band_stride) == (0, cfg.height, 1) and g.bins is not None:
+        return g.bins
+    if band_stride > 1:
+        return interleave_bins(g.bins, y0 // cfg.tile_h, band_stride)
+    return bin_tiles(g.setup.bbox, cfg.width, band_h, cfg.tile_w, cfg.tile_h,
+                     cfg.max_chunks_per_tile, y0=y0)
+
+
+def band_pixels(g: Geometry, cfg: RenderConfig, bins: ChunkBins, y0: int,
+                band_h: int, band_stride: int = 1) -> PixelBuffer:
+    """The raster stage of a band after its binning (``band_bins``): K2,
+    or K2w in WIREFRAME, on the band's rows."""
+    return raster_cuda.rasterize_pixels(
+        g.records, g.setup.setup, g.setup.bbox, bins, cfg.width, cfg.height,
+        wireframe=cfg.mode == RenderMode.WIREFRAME,
+        wire_thresh=cfg.wire_thresh_px, y0=y0, y_stride=band_stride,
+        band_h=band_h)
+
+
+def _gather(parts: list, comm) -> Tensor:
+    """The bands' tensors of every band, concatenated in band order: the
+    local ones, or one per rank through ``comm``."""
+    return torch.cat(parts) if comm is None else comm.all_gather(parts[0])
+
+
+def shadow_band_runs(sh: ShadowGeometry, cfg: RenderConfig, ks,
+                     bands: int) -> list:
+    """For each map band k of ``ks`` (of ``bands`` row bands), its run of
+    the full map's bin entries (``raster_cuda.band_entries``; one
+    read-back for all)."""
+    D = cfg.shadow_dim
+    if D % bands:
+        raise ValueError(f"{bands} shadow bands do not divide {D} rows")
+    sb_h = D // bands
+    return raster_cuda.band_entries(sh.bins, [(k * sb_h, sb_h) for k in ks])
+
+
+def shadow_band_map(sh: ShadowGeometry, cfg: RenderConfig, k: int,
+                    bands: int, run: tuple) -> Tensor:
+    """The shadow stage of map band k of ``bands``: K1 on its run of the
+    full map's bins → its (D / bands, D) rows of the map."""
+    D = cfg.shadow_dim
+    sb_h = D // bands
+    return raster_cuda.rasterize_depth(sh.setup.setup, sh.setup.bbox,
+                                       sh.bins, D, k * sb_h, sb_h, run)
+
+
+def band_edges(part: Tensor) -> Tensor:
+    """A map band's first two and last row, (3, D): what its neighbours'
+    halos take."""
+    return torch.cat([part[:2], part[-1:]])
+
+
+def shadow_table_band(part: Tensor, edges: Tensor, k: int,
+                      bands: int) -> Tensor:
+    """The table stage of map band k: its PCF table rows from the band and
+    a halo of one map row above and two below, taken from ``edges`` (every
+    band's ``band_edges``, (bands, 3, D)); the first and last band clamp
+    to their own rows (JAX render_band :310-342)."""
+    D = part.shape[1]
+    top1 = edges[k - 1, 2:] if k > 0 else part[:1]
+    bot2 = edges[k + 1, :2] if k < bands - 1 else part[-1:].expand(2, D)
+    return build_shadow_table_band(part, top1, bot2, D)
+
+
+def banded_shadow(sh: ShadowGeometry, cfg: RenderConfig, bands: int,
+                  comm=None) -> tuple:
+    """A fresh shadow pass in ``bands`` row bands of the map
+    (``shadow_band_map``) → (map, None), or for LIT_SHADOW with bands of
+    whole 8-row blocks (None, PCF table) (``shadow_table_band``), each
+    assembled by one collective."""
+    ks = range(bands) if comm is None else [comm.rank]
+    runs = shadow_band_runs(sh, cfg, ks, bands)
+    parts = [shadow_band_map(sh, cfg, k, bands, run)
+             for k, run in zip(ks, runs)]
+    if cfg.mode != RenderMode.LIT_SHADOW or (cfg.shadow_dim // bands) % 8:
+        return _gather(parts, comm), None
+    edges = _gather([band_edges(p) for p in parts], comm).reshape(
+        bands, 3, cfg.shadow_dim)
+    return None, _gather([shadow_table_band(p, edges, k, bands)
+                          for k, p in zip(ks, parts)], comm)
+
+
+def render_band(scene: Scene, state: FrameState, config: RenderConfig,
+                shadow_map: Tensor | None = None,
+                use_cached_shadow: bool | None = None, *,
+                shadow_table: Tensor | None = None,
+                shadow_geom: ShadowGeometry | None = None,
+                view_wh=None, uniforms=None, band_h: int | None = None,
+                y0=0, band_stride: int = 1, shadow_bands: int = 1,
+                comm=None) -> FrameOutputs:
+    """Render one frame of ``config.mode``, or row bands of it.
 
     The shadow map of LIT_SHADOW and DEBUG is rasterized in the frame
     unless the caller supplies it: ``shadow_map`` (from
@@ -313,11 +440,46 @@ def render_frame(scene: Scene, state: FrameState, config: RenderConfig,
     smaller than the raster.  ``uniforms``: (view_proj, light_vp) on the
     scene's device, computed by the caller with ``frame_uniforms_host``
     for this state and view; without them the frame reads the pose back
-    from the device."""
+    from the device.
+
+    Row bands (JAX render_band :185-498): ``band_h`` rows from each first
+    row in ``y0`` (an int or a sequence, one per band this call renders),
+    interleaved tile rows with ``band_stride`` > 1.  A fresh map is
+    rasterized in ``shadow_bands`` bands and assembled (``banded_shadow``).
+    ``comm``: None when this call renders every band (the collectives are
+    concatenations), else an object with ``rank``, ``size`` and
+    ``all_gather(t)`` (``t`` of every rank concatenated along dim 0, rank
+    order; parallel/mesh.Collectives) for a call that renders band
+    ``comm.rank`` of ``comm.size``.  image and depth hold the bands'
+    rows, band after band; DEBUG's depth quad shows the depth of every
+    band (gathered).  The reference's rules hold: no DEBUG in interleaved
+    bands, ``shadow_geom`` only for a whole map, and the table path only
+    for LIT_SHADOW bands of whole 8-row blocks; ``view_wh`` and bands
+    exclude each other.  ``raster_overflow`` sums the bands' binnings and,
+    once (band 0 or rank 0), the shadow binning's."""
     cfg = config
     if cfg.present_scale < 1:
         raise ValueError("present_scale must be at least 1")
     mode, D, dev = cfg.mode, cfg.shadow_dim, scene.device
+    banded = band_h is not None
+    band_h = cfg.height if band_h is None else band_h
+    y0s = [y0] if isinstance(y0, int) else list(y0)
+    if banded:
+        if band_stride > 1 and mode == RenderMode.DEBUG:
+            raise ValueError("DEBUG overlays are contiguous-band only")
+        if band_stride > 1 and (band_h % cfg.tile_h
+                                or any(y % cfg.tile_h for y in y0s)):
+            raise ValueError("interleaved bands take whole tile rows")
+        if view_wh is not None:
+            raise ValueError("view_wh is for whole frames only")
+        unit = cfg.tile_h if band_stride > 1 else band_h
+        if unit % cfg.present_scale:
+            raise ValueError("present_scale must divide the band's rows")
+    if shadow_geom is not None and shadow_bands > 1:
+        raise ValueError("shadow_geom is full-map only")
+    if comm is not None and (len(y0s) != 1
+                             or shadow_bands not in (1, comm.size)):
+        raise ValueError("a rank renders one band of comm.size")
     needs_shadow = mode in SHADOW_MODES
     if shadow_table is not None and (
             mode != RenderMode.LIT_SHADOW or shadow_map is not None
@@ -330,40 +492,64 @@ def render_frame(scene: Scene, state: FrameState, config: RenderConfig,
         shadow_map is None or use_cached_shadow is False)
 
     g = frame_geometry(scene, state, cfg, view_wh, uniforms,
-                       light_space=fresh and shadow_geom is None)
-    overflow = g.bins.overflow
+                       light_space=fresh and shadow_geom is None,
+                       main_bins=not banded or band_stride > 1)
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
 
     # shadow pass (src/lib.rs:1721-1751)
     small = torch.zeros((1, 1), dtype=torch.float32, device=dev)
+    table = shadow_table
     if not needs_shadow:
         shadow_map = shadow_out = torch.ones((D, D), dtype=torch.float32,
                                              device=dev)
     elif fresh:
         sh = shadow_geom if shadow_geom is not None \
             else ShadowGeometry(g.shadow_setup, g.shadow_bins)
-        shadow_map = shadow_out = raster_cuda.rasterize_depth(
-            sh.setup.setup, sh.setup.bbox, sh.bins, D)
-        overflow = overflow + sh.bins.overflow
+        if shadow_bands > 1:
+            shadow_map, table = banded_shadow(sh, cfg, shadow_bands, comm)
+            shadow_out = small if shadow_map is None else shadow_map
+        else:
+            shadow_map = shadow_out = raster_cuda.rasterize_depth(
+                sh.setup.setup, sh.setup.bbox, sh.bins, D)
+        if comm is None or comm.rank == 0:
+            overflow = overflow + sh.bins.overflow
     elif use_cached_shadow:
         shadow_out = torch.zeros((D, D), dtype=torch.float32, device=dev)
     else:
         shadow_out = small   # the caller holds the map or table it gave
+    if needs_shadow and table is None:
+        table = build_shadow_table(shadow_map)
 
-    # main raster + varying interpolation
-    pix = raster_cuda.rasterize_pixels(
-        g.records, g.setup.setup, g.setup.bbox, g.bins, cfg.width,
-        cfg.height,
-        wireframe=mode == RenderMode.WIREFRAME,
-        wire_thresh=cfg.wire_thresh_px)
+    # main raster + varying interpolation, band by band
+    pixs = []
+    for b0 in y0s:
+        bins = band_bins(g, cfg, b0, band_h, band_stride)
+        pixs.append(band_pixels(g, cfg, bins, b0, band_h, band_stride))
+        overflow = overflow + bins.overflow
 
-    table = None
-    if needs_shadow:
-        table = shadow_table if shadow_table is not None \
-            else build_shadow_table(shadow_map)
-    color = _shade(scene, state, cfg, pix, table, g.light_vp)
-    clear = torch.tensor(cfg.clear_color, dtype=torch.float32,
-                         device=dev)[:, None, None]
-    image = torch.where(pix.mask[None], color, clear)
-    return FrameOutputs(image=_surface(image, state, cfg, pix.z, shadow_map),
-                        depth=pix.z, shadow=shadow_out,
-                        raster_overflow=overflow)
+    depth_tex = None
+    if banded and mode == RenderMode.DEBUG \
+            and cfg.debug_texture == DebugTexture.SCENE_DEPTH:
+        depth_tex = _gather([pix.z for pix in pixs], comm)
+    images = [band_surface(
+        band_shade(scene, state, cfg, pix, table, g.light_vp), state, cfg,
+        pix.z if depth_tex is None else depth_tex, shadow_map, b0)
+        for b0, pix in zip(y0s, pixs)]
+    depth = [pix.z for pix in pixs]
+    return FrameOutputs(
+        image=images[0] if len(images) == 1 else torch.cat(images),
+        depth=depth[0] if len(depth) == 1 else torch.cat(depth),
+        shadow=shadow_out, raster_overflow=overflow)
+
+
+def render_frame(scene: Scene, state: FrameState, config: RenderConfig,
+                 shadow_map: Tensor | None = None,
+                 use_cached_shadow: bool | None = None,
+                 shadow_table: Tensor | None = None,
+                 shadow_geom: ShadowGeometry | None = None,
+                 view_wh=None, uniforms=None) -> FrameOutputs:
+    """Render one whole frame: ``render_band`` with one band of every
+    row (see there for the arguments)."""
+    return render_band(scene, state, config, shadow_map, use_cached_shadow,
+                       shadow_table=shadow_table, shadow_geom=shadow_geom,
+                       view_wh=view_wh, uniforms=uniforms)

@@ -220,6 +220,79 @@ def test_kernels_match_plain_on_adversarial_cases(geometry, which):
     assert torch.equal(k1, p1)
 
 
+@pytest.mark.parametrize("n,interleave", [(8, False), (5, True)])
+def test_band_kernels_match_plain(geometry, wire_geometry, n, interleave):
+    """K2 and K2w on every row band (contiguous: 24 rows on 16-row tiles,
+    binned on the band's own grid; interleaved: 3 tile rows of the full
+    grid's bins, the last band's last row padding), bit-equal to their
+    plain versions and to the whole frame's rows; each call counted as a
+    band launch."""
+    from kanirenderer_tpu_torch.ops.binning import interleave_bins
+    from kanirenderer_tpu_torch.parallel.mesh import deinterleave_rows
+    for g, cfg in (geometry, wire_geometry):
+        W, H = cfg.width, cfg.height
+        wire = cfg.mode == RenderMode.WIREFRAME
+        st = g.setup
+        whole = rc.rasterize_pixels(g.records, st.setup, st.bbox, g.bins, W,
+                                    H, wire)
+        tiles = -(-H // cfg.tile_h)
+        band_h = -(-tiles // n) * cfg.tile_h if interleave else H // n
+        bands = []
+        for k in range(n):
+            y0 = k * cfg.tile_h if interleave else k * band_h
+            bins = interleave_bins(g.bins, k, n) if interleave else \
+                bin_tiles(st.bbox, W, band_h, cfg.tile_w, cfg.tile_h,
+                          cfg.max_chunks_per_tile, y0=y0)
+            args = (g.records, st.setup, st.bbox, bins, W, H, wire, 0.7, y0,
+                    n if interleave else 1, band_h)
+            name = "rasterize_pixels_wireframe_band" if wire \
+                else "rasterize_pixels_band"
+            before = rc.launch_counts[name]
+            k2 = rc.rasterize_pixels(*args)
+            assert rc.launch_counts[name] == before + 1
+            _assert_pixels_equal(k2, rc.rasterize_pixels_plain(*args))
+            bands.append(k2)
+        torch.cuda.synchronize()
+        for f in ("tid", "z", "varyings"):
+            got = torch.cat([getattr(b, f) for b in bands], -2)
+            if interleave:
+                got = deinterleave_rows(got.movedim(-2, 0), n, cfg.tile_h,
+                                        H).movedim(0, -2)
+            assert torch.equal(got, getattr(whole, f)), f
+
+
+def test_depth_band_kernel_matches_plain(geometry):
+    """K1 on map bands that do and do not start and end on tile rows,
+    from the whole map's bins: bit-equal to the plain version and to the
+    whole map's rows."""
+    g, cfg = geometry
+    st, D = g.shadow_setup, cfg.shadow_dim
+    whole = rc.rasterize_depth(st.setup, st.bbox, g.shadow_bins, D)
+    for y0, band_h in ((0, 40), (40, 100), (140, 116), (64, 64)):
+        before = rc.launch_counts["rasterize_depth_band"]
+        k1 = rc.rasterize_depth(st.setup, st.bbox, g.shadow_bins, D, y0,
+                                band_h)
+        assert rc.launch_counts["rasterize_depth_band"] == before + 1
+        p1 = rc.rasterize_depth_plain(st.setup, st.bbox, g.shadow_bins, D,
+                                      y0, band_h)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, p1)
+        assert torch.equal(k1, whole[y0:y0 + band_h])
+    assert (whole < 1.0).any()
+
+
+def test_dryrun_multichip_on_the_card():
+    """``parallel.dryrun_multichip(2)``: the tiny banded frames (NCCL ranks
+    where there are two cards, else the bands looped on card 0), each
+    equal to the whole frame; the frames come back on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from kanirenderer_tpu_torch.parallel import dryrun_multichip
+    frames = dryrun_multichip(2)
+    image = frames["full"][0]
+    assert image.shape == (32, 128, 3) and image.float().std() > 10.0
+
+
 def _loop_scene():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
@@ -254,7 +327,9 @@ def test_loop_launch_counts(cache):
     assert stats["frames"] == 6 and stats["healed"] == 0
     assert rc.launch_counts == {
         "rasterize_depth": 1 if cache else 5, "rasterize_pixels": 5,
-        "rasterize_pixels_wireframe": 1, "rasterize_visibility": 0}
+        "rasterize_pixels_wireframe": 1, "rasterize_visibility": 0,
+        "rasterize_depth_band": 0, "rasterize_pixels_band": 0,
+        "rasterize_pixels_wireframe_band": 0}
 
 
 def test_loop_steady_state_equals_fresh_frame():
