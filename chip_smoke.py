@@ -33,8 +33,11 @@ case); any failure exits non-zero:
      versions on the adversarial cases of ops/raster_cases.py (hit-list
      overflow, tiles at the 640-chunk cap with counted overflow, empty
      tiles, depth ties across chunks, a ragged raster, NaN planes,
-     wireframe interiors, infinite and overflowing coefficients),
-     bit-equal;
+     wireframe interiors, infinite and overflowing coefficients, two
+     layers far one first, steep slivers below their vertex bound),
+     bit-equal; then each case with the occlusion skip (binned nearest
+     first, and in id order with the bounds): bit-equal, the kernels'
+     counts equal to ops/occ_replay's;
  13. load: writes the full-size stand-in (257,040 triangles, 25 materials,
      256² textures) as OBJ + MTL + PNG files into a temporary directory
      and loads it through api.load_model_or_default; also a small scene
@@ -73,14 +76,30 @@ case); any failure exits non-zero:
  23. the same frame over torch.distributed: 2 gloo ranks sharing the
      card (and 2 NCCL ranks where there are two cards), 2 frames, each
      rank's frame torch.equal to the one-process frame; then
-     parallel.dryrun_multichip(2) (on one card: the bands looped on it).
+     parallel.dryrun_multichip(2) (on one card: the bands looped on it);
+ 24. occlusion: K1 at the bench pose, whole and in 4 map bands, with the
+     skip (the default scope's nearest-first bins) and without, K2, K2w,
+     K3 and K3 wireframe on the layered scene (models/procedural, about
+     260K triangles) at 1920x1080 and at the bench pose with scope "1" and
+     "0": outputs bit-equal to each other and to the plain versions, the
+     kernels' counts of chunks skipped and warp visits beside
+     ops/occ_replay's, graph-replay times on and off; interleaved K2 and
+     K2w bands of the layered scene with scope "1", reassembled to the
+     whole frame, timed with the skip and without; the gate's break-even
+     (K2 built with the skip's tests made never to fire, timed at the bench
+     pose and on the layered scene); the gate (occ_replay.choose_occ_scope)
+     on the stand-in and the layered scene, its decision, estimate and
+     seconds; api.run on the layered scene written as OBJ + MTL with
+     KANI_OCC=auto against KANI_OCC=0, frames bit-equal.
 Kernel times are CUDA-graph replays (mean, and the median of the
 replays; the eager 20-call mean beside them).  Before and after the frame
 phases 6, 10, 14-15 and 21-22 a "state" line gives the card's clocks,
 throttle reasons, temperature and power and the host CPU's MHz.
 Then a JSON line of per-kernel results (the band variants' rows averaged
-over the bands of the bench's 4 contiguous bands), the card line, and
-last {"ok": true, "device": {...}}.
+over the bands of the bench's 4 contiguous bands; each row also with its
+time with the occlusion skip off or on and its share of evaluations
+spared, from phase 24), the card line, and last {"ok": true, "device":
+{...}}.
 """
 
 import contextlib
@@ -310,22 +329,21 @@ def image_std(img) -> float:
     return img.float().std().item() * scale
 
 
-def write_standin_obj(directory: str, name: str = "scene",
-                      normal16: bool = False, **standin) -> str:
-    """Write the sponza stand-in (models/procedural.standin_parts with the
-    keywords ``standin``) as ``<name>.obj`` + ``<name>.mtl`` + one PNG
-    diffuse and one PNG normal map per material into ``directory``;
-    returns the OBJ's path.  One ``g`` section per quad patch, floats as
-    %.9g so that float32 values round-trip, textures through the port's
-    ``encode_png``.  ``normal16``: the first material's normal map as a
-    16-bit PNG with values between the 8-bit levels, so that the loader
-    keeps the separate texture tables.  No OBJ asset ships with the
-    repository: the smoke run and the tests load what this writes."""
+def write_scene_obj(directory: str, textures, patches, name: str = "scene",
+                    normal16: bool = False) -> str:
+    """Write a procedural scene's host arrays (``textures``, ``patches``
+    as models/procedural.standin_parts gives them) as ``<name>.obj`` +
+    ``<name>.mtl`` + one PNG diffuse and one PNG normal map per material
+    into ``directory``; returns the OBJ's path.  One ``g`` section per
+    patch, floats as %.9g so that float32 values round-trip, textures
+    through the port's ``encode_png``.  ``normal16``: the first material's
+    normal map as a 16-bit PNG with values between the 8-bit levels, so
+    that the loader keeps the separate texture tables.  No OBJ asset ships
+    with the repository: the smoke run and the tests load what this
+    writes."""
     import numpy as np
     from kanirenderer_tpu_torch.io.image import write_png
-    from kanirenderer_tpu_torch.models.procedural import standin_parts
 
-    textures, patches = standin_parts(**standin)
     mtl = []
     for i, t in enumerate(textures):
         normal = t.normal[..., :3]
@@ -352,6 +370,23 @@ def write_standin_obj(directory: str, name: str = "scene",
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
+
+
+def write_standin_obj(directory: str, name: str = "scene",
+                      normal16: bool = False, **standin) -> str:
+    """Write the sponza stand-in (models/procedural.standin_parts with the
+    keywords ``standin``) through ``write_scene_obj``."""
+    from kanirenderer_tpu_torch.models.procedural import standin_parts
+    return write_scene_obj(directory, *standin_parts(**standin), name,
+                           normal16)
+
+
+def write_layered_obj(directory: str, name: str = "layered",
+                      **layered) -> str:
+    """Write the layered scene (models/procedural.layered_parts with the
+    keywords ``layered``) through ``write_scene_obj``."""
+    from kanirenderer_tpu_torch.models.procedural import layered_parts
+    return write_scene_obj(directory, *layered_parts(**layered), name)
 
 
 class CaptureSink:
@@ -1028,6 +1063,334 @@ def distributed_form(whole, card, forms) -> None:
             fail(f"phase 23 {label}: ranks disagree with one process")
 
 
+def occ_counts(fn) -> tuple:
+    """(output, the kernel's occlusion counts) of one call
+    ``fn(counts=...)``."""
+    import torch
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    counts = torch.zeros(len(rc.OCC_COUNTS), dtype=torch.int64,
+                         device="cuda")
+    out = fn(counts=counts)
+    torch.cuda.synchronize()
+    return out, dict(zip(rc.OCC_COUNTS, counts.tolist()))
+
+
+def share(on: dict, off: dict) -> float:
+    """The share of the warp visits without the skip that it spares."""
+    return 1.0 - on["visits"] / off["visits"] if off["visits"] else 0.0
+
+
+def occ_line(label: str, c_on: dict, c_off: dict, r_on: dict, r_off: dict,
+             on_ms, off_ms, equal: bool, card: str) -> dict:
+    """Print one phase-24 line and return its numbers."""
+    k_share, r_share = share(c_on, c_off), share(r_on, r_off)
+    print(f"phase 24 {label}: outputs on = off = plain {equal}; kernel "
+          f"{json.dumps(c_on)} (off: visits {c_off['visits']}), spared "
+          f"{k_share:.4f} of the evaluations; replay {json.dumps(r_on)}, "
+          f"spared {r_share:.4f}; skip on {on_ms[0]:.4f} ms (median "
+          f"{on_ms[1]:.4f}), off {off_ms[0]:.4f} ms (median "
+          f"{off_ms[1]:.4f}) on {card}", flush=True)
+    return dict(share=k_share, replay_share=r_share, ms_on=on_ms[0],
+                ms_off=off_ms[0], counts=c_on)
+
+
+def occ_main_grid(label, g, cfg, wire, card, y0=0, y_stride=1,
+                  band_h=None) -> dict:
+    """Phase 24 on a main grid: K2 (K2w with ``wire``) and K3 of the same
+    coverage, skip on (nearest-first bins with bounds) and off (id-ordered
+    bins without), each bit-equal to the plain versions; counts from the
+    kernels and from ops/occ_replay; graph-replay times of K2/K2w."""
+    import torch
+    from kanirenderer_tpu_torch.ops import occ_replay
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    from kanirenderer_tpu_torch.ops.binning import bin_tiles, depth_bound
+    W, H = cfg.width, cfg.height
+    st = g.setup
+    thresh = cfg.wire_thresh_px
+    bins_on = bin_tiles(st.bbox, W, H, cfg.tile_w, cfg.tile_h,
+                        cfg.max_chunks_per_tile,
+                        occ_bound=depth_bound(st.setup, st.bbox, cfg.tile_w,
+                                              cfg.tile_h))
+    bins_off = bin_tiles(st.bbox, W, H, cfg.tile_w, cfg.tile_h,
+                         cfg.max_chunks_per_tile)
+    out = {}
+    for name, fn in (("K2w" if wire else "K2", lambda b, **kw:
+                      rc.rasterize_pixels(g.records, st.setup, st.bbox, b,
+                                          W, H, wire, thresh, **kw)),
+                     ("K3w" if wire else "K3", lambda b, **kw:
+                      rc.rasterize(st.setup, st.bbox, b, W, H, wire, thresh,
+                                   **kw))):
+        k_on, c_on = occ_counts(lambda counts: fn(bins_on, counts=counts))
+        k_off, c_off = occ_counts(lambda counts: fn(bins_off,
+                                                    counts=counts))
+        if name.startswith("K2"):
+            p = rc.rasterize_pixels_plain(g.records, st.setup, st.bbox,
+                                          bins_on, W, H, wire, thresh)
+            equal = not pixels_differ(k_on, p) and not pixels_differ(k_off,
+                                                                     p)
+        else:
+            p = rc.rasterize_plain(st.setup, st.bbox, bins_on, W, H, wire,
+                                   thresh)
+            equal = all(torch.equal(a, c) and torch.equal(b, c)
+                        for a, b, c in zip(k_on, k_off, p))
+        r_on = occ_replay.replay(st.setup, st.bbox, bins_on, W, H,
+                                 thresh if wire else None,
+                                 raster=False).counts
+        r_off = occ_replay.replay(st.setup, st.bbox, bins_off, W, H,
+                                  thresh if wire else None,
+                                  raster=False).counts
+        on_ms = graph_ms(lambda: fn(bins_on))
+        off_ms = graph_ms(lambda: fn(bins_off))
+        out[name] = occ_line(f"{name} {label}", c_on, c_off, r_on, r_off,
+                             on_ms, off_ms, equal, card)
+        if not equal:
+            fail(f"phase 24 {name} {label}: the skip changes the outputs")
+        if c_on != r_on:
+            fail(f"phase 24 {name} {label}: kernel counts {c_on} are not "
+                 f"the replay's {r_on}")
+        del k_on, k_off, p
+    return out
+
+
+def occ_cases(case, sq, card) -> None:
+    """Phase 12's occlusion lines: the case binned nearest first, and with
+    its own id-ordered bins and the bounds, through K2, K2w, K3 (both
+    coverages) and K1 (the square case) with the skip: bit-equal to the
+    plain versions, counts equal to ops/occ_replay's (K1: at least its
+    skips and drops)."""
+    import torch
+    from kanirenderer_tpu_torch.ops import occ_replay, raster_cases
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    occ = raster_cases.occlusion_case(case)
+    sq_occ = raster_cases.occlusion_case(sq)
+    shares, differ = [], []
+    for form, bins in (("nearest first", occ.bins),
+                       ("id order", case.bins._replace(
+                           bound=occ.bins.bound))):
+        off = bins._replace(bound=None)
+        for wire in (False, True):
+            args = (case.width, case.height, wire, raster_cases.WIRE_THRESH)
+            k, c_on = occ_counts(lambda counts: rc.rasterize_pixels(
+                case.records, case.setup, case.bbox, bins, *args,
+                counts=counts))
+            _, c_off = occ_counts(lambda counts: rc.rasterize_pixels(
+                case.records, case.setup, case.bbox, off, *args,
+                counts=counts))
+            p = rc.rasterize_pixels_plain(case.records, case.setup,
+                                          case.bbox, bins, *args)
+            v, c3 = occ_counts(lambda counts: rc.rasterize(
+                case.setup, case.bbox, bins, *args, counts=counts))
+            vp = rc.rasterize_plain(case.setup, case.bbox, bins, *args)
+            r = occ_replay.replay(case.setup, case.bbox, bins, case.width,
+                                  case.height,
+                                  raster_cases.WIRE_THRESH if wire else None,
+                                  raster=False).counts
+            tag = f"{form} {'K2w/K3w' if wire else 'K2/K3'}"
+            differ += [f"{tag}.{f}" for f in pixels_differ(k, p)]
+            differ += [f"{tag}.{f}" for f, a, b in zip(vp._fields, v, vp)
+                       if not torch.equal(a, b)]
+            if not c_on == c3 == r:
+                differ.append(f"{tag} counts {c_on} {c3} replay {r}")
+            shares.append(share(c_on, c_off))
+    m, c1 = occ_counts(lambda counts: rc.rasterize_depth(
+        sq.setup, sq.bbox, sq_occ.bins, sq.width, counts=counts))
+    r1 = occ_replay.replay(sq.setup, sq.bbox, sq_occ.bins, sq.width,
+                           sq.width, depth_only=True, raster=False).counts
+    if not torch.equal(m, rc.rasterize_depth_plain(sq.setup, sq.bbox,
+                                                   sq_occ.bins, sq.width)):
+        differ.append("K1")
+    if (c1["chunks_skipped"] < r1["chunks_skipped"]
+            or c1["visits"] > r1["visits"]):
+        differ.append(f"K1 counts {c1} replay {r1}")
+    print(f"phase 12 {case.name} with the occlusion skip: evaluations "
+          f"spared (nearest first / id order; K2, K2w) "
+          f"{[round(x, 4) for x in shares]}, K1 {json.dumps(c1)}, outputs "
+          f"or counts that disagree {differ}", flush=True)
+    if differ:
+        fail(f"phase 12 {case.name}: the occlusion skip disagrees")
+
+
+def occlusion(scene, state, g, cfg, wcfg, card, tmp) -> dict:
+    """Phase 24: the occlusion skip.  K1 at the bench pose, whole and in 4
+    bands; K2, K2w, K3 on the layered scene at 1920x1080 and at the bench
+    pose; interleaved K2 and K2w bands with scope "1"; the gate on the
+    stand-in and on layered scenes of 4 and 8 walls, and api.run with
+    KANI_OCC=auto on both layered scenes written as OBJ."""
+    import torch
+    from kanirenderer_tpu_torch import api
+    from kanirenderer_tpu_torch.core.types import (RenderMode,
+                                                   default_camera,
+                                                   default_lights,
+                                                   frame_state)
+    from kanirenderer_tpu_torch.models.procedural import layered_scene
+    from kanirenderer_tpu_torch.ops import occ_replay
+    from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    from kanirenderer_tpu_torch.ops.binning import bin_tiles, interleave_bins
+    from kanirenderer_tpu_torch.passes.frame import frame_geometry
+    from kanirenderer_tpu_torch.runtime.loop import Events
+    dev = torch.device("cuda", 0)
+    D, W, H = cfg.shadow_dim, cfg.width, cfg.height
+    res = {}
+
+    # K1 at the bench pose: the frame's own nearest-first shadow bins
+    # (scope "shadow", the default) against id-ordered bins without bounds.
+    sh, sb = g.shadow_setup, g.shadow_bins
+    if sb.bound is None:
+        fail("phase 24: the default scope does not skip in K1")
+    sb_off = bin_tiles(sh.bbox, D, D, cfg.tile_w, cfg.shadow_tile_h,
+                       cfg.shadow_chunks_per_tile)
+    bands = [(k * D // 4, D // 4) for k in range(4)]
+    runs_on = rc.band_entries(sb, bands)
+    runs_off = rc.band_entries(sb_off, bands)
+    for label, y0, bh, e_on, e_off in (
+            [("K1", 0, D, (0, sb.chunk.shape[0]),
+              (0, sb_off.chunk.shape[0]))]
+            + [(f"K1 band {k}/4", y0, bh, runs_on[k], runs_off[k])
+               for k, (y0, bh) in enumerate(bands)]):
+        def k1(bins, entries, **kw):
+            return rc.rasterize_depth(sh.setup, sh.bbox, bins, D, y0, bh,
+                                      entries, **kw)
+        m_on, c_on = occ_counts(lambda counts: k1(sb, e_on, counts=counts))
+        m_off, c_off = occ_counts(lambda counts: k1(sb_off, e_off,
+                                                    counts=counts))
+        p = rc.rasterize_depth_plain(sh.setup, sh.bbox, sb, D, y0, bh)
+        equal = torch.equal(m_on, p) and torch.equal(m_off, p)
+        r_on = occ_replay.replay(sh.setup, sh.bbox, sb, D, D,
+                                 depth_only=True, y0=y0, band_h=bh,
+                                 entries=e_on, raster=False).counts
+        r_off = occ_replay.replay(sh.setup, sh.bbox, sb_off, D, D,
+                                  depth_only=True, y0=y0, band_h=bh,
+                                  entries=e_off, raster=False).counts
+        res[label] = occ_line(label + " bench pose", c_on, c_off, r_on,
+                              r_off, graph_ms(lambda: k1(sb, e_on)),
+                              graph_ms(lambda: k1(sb_off, e_off)), equal,
+                              card)
+        if not equal:
+            fail(f"phase 24 {label}: the skip changes the map")
+        del m_on, m_off, p
+
+    # K2, K2w, K3 on the layered scene and at the bench pose.
+    lay = layered_scene(device=dev)
+    lstate = frame_state(lay, default_camera(device=dev),
+                         default_lights(device=dev))
+    lcfg = cfg.with_(occ_scope="1")
+    gl = frame_geometry(lay, lstate, lcfg)
+    glw = frame_geometry(lay, lstate, lcfg.with_(mode=RenderMode.WIREFRAME))
+    print(f"phase 24 layered scene: {int(lay.tri_valid.sum())} triangles, "
+          f"{W}x{H}, main-grid chunks per tile max "
+          f"{int(gl.bins.count.max())} mean "
+          f"{gl.bins.count.float().mean().item():.2f}", flush=True)
+    gw = frame_geometry(scene, state, wcfg)
+    for label, gg, wire in (("layered", gl, False), ("layered", glw, True),
+                            ("bench pose", g, False),
+                            ("bench pose", gw, True)):
+        out = occ_main_grid(label, gg, cfg, wire, card)
+        res.update({f"{name} {label}": v for name, v in out.items()})
+    if res["K2 layered"]["share"] < 0.3:
+        fail("phase 24: K2 spares under 30% of the evaluations on the "
+             "layered scene")
+
+    # Interleaved K2 and K2w bands with scope "1" on the layered scene:
+    # reassembled to the whole frame, and per band with the skip and
+    # without (the same bins without bounds).
+    n, th = 4, gl.bins.tile_h
+    J = -(-gl.bins.tiles_y // n)
+    for name, gg, wire in (("K2", gl, False), ("K2w", glw, True)):
+        st = gg.setup
+
+        def band(k, bins, **kw):
+            return rc.rasterize_pixels(
+                gg.records, st.setup, st.bbox, bins, W, H, wire,
+                cfg.wire_thresh_px, y0=k * th, y_stride=n, band_h=J * th,
+                **kw)
+
+        whole = rc.rasterize_pixels(gg.records, st.setup, st.bbox, gg.bins,
+                                    W, H, wire, cfg.wire_thresh_px)
+        z = torch.empty((J * n * th, W), device=dev)
+        tid = torch.empty((J * n * th, W), dtype=torch.int32, device=dev)
+        rows_on = []
+        for k in range(n):
+            on_bins = interleave_bins(gg.bins, k, n)
+            off_bins = on_bins._replace(bound=None)
+            b, c_on = occ_counts(lambda counts: band(k, on_bins,
+                                                     counts=counts))
+            _, c_off = occ_counts(lambda counts: band(k, off_bins,
+                                                      counts=counts))
+            rows_on.append((graph_ms(lambda: band(k, on_bins))[0],
+                            graph_ms(lambda: band(k, off_bins))[0],
+                            share(c_on, c_off)))
+            for j in range(J):
+                rows = slice((j * n + k) * th, (j * n + k + 1) * th)
+                z[rows], tid[rows] = b.z[j * th:(j + 1) * th], \
+                    b.tid[j * th:(j + 1) * th]
+        torch.cuda.synchronize()
+        equal = torch.equal(z[:H], whole.z) \
+            and torch.equal(tid[:H], whole.tid)
+        on_ms, off_ms, spared = (statistics.mean(r[i] for r in rows_on)
+                                 for i in range(3))
+        res[f"{name} band layered"] = dict(ms_on=on_ms, ms_off=off_ms,
+                                           share=spared)
+        print(f"phase 24 interleaved {name} bands of the layered scene, "
+              f"scope 1, n = {n}: reassembled bit-equal to the whole frame "
+              f"{equal}; per band, mean: skip on {on_ms:.4f} ms, off "
+              f"{off_ms:.4f} ms, evaluations spared {spared:.4f} on {card}",
+              flush=True)
+        if not equal:
+            fail(f"phase 24: interleaved {name} bands with the skip differ")
+        del whole, z, tid
+
+    # The gate on the bench scene and pose and on layered scenes of 4 and 8
+    # walls, and api.run on those scenes written as OBJ + MTL,
+    # KANI_OCC=auto against KANI_OCC=0 (8 walls: past the break-even, so
+    # the main-grid skip runs in the loop).
+    del gl, glw
+    lay8 = layered_scene(layers=8, device=dev)
+    for name, sc, st in (("sponza stand-in, default camera", scene,
+                          frame_state(scene, default_camera(device=dev),
+                                      default_lights(device=dev))),
+                         ("sponza stand-in, bench pose", scene, state),
+                         ("layered scene", lay, lstate),
+                         ("layered scene of 8 walls", lay8,
+                          frame_state(lay8, default_camera(device=dev),
+                                      default_lights(device=dev)))):
+        t0 = time.perf_counter()
+        scope, est = occ_replay.choose_occ_scope(sc, st, cfg)
+        print(f"phase 24 gate on the {name}: scope {scope} in "
+              f"{time.perf_counter() - t0:.2f} s, estimate "
+              f"{json.dumps(est)} (threshold "
+              f"{occ_replay.EVAL_DROP_THRESHOLD})", flush=True)
+        res[f"gate {name}"] = scope
+        if scope != ("1" if est["eval_drop"] >= occ_replay.EVAL_DROP_THRESHOLD
+                     else "shadow"):
+            fail(f"phase 24: the gate's decision on the {name}")
+    del lay, lay8
+    for layers in (4, 8):
+        path = write_layered_obj(tmp, name=f"layered{layers}", layers=layers)
+        frames, said = {}, ""
+        for occ in ("auto", "0"):
+            os.environ["KANI_OCC"] = occ
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            out = os.path.join(tmp, f"occ{layers}_{occ}_%d.png")
+            with contextlib.redirect_stdout(buf):
+                stats = api.run(path, width=W, height=H, frames=2,
+                                sink="png", out=out,
+                                events=[Events(), Events()])
+            said += buf.getvalue()
+            frames[occ] = [open(out % i, "rb").read() for i in range(2)]
+            print(f"phase 24 api.run layered OBJ of {layers} walls "
+                  f"KANI_OCC={occ}: {stats['frames']} frames in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        del os.environ["KANI_OCC"]
+        gate = [ln for ln in said.splitlines() if ln.startswith("occlusion")]
+        equal = frames["auto"] == frames["0"]
+        print(f"phase 24 api.run {layers} walls KANI_OCC=auto: {gate}; "
+              f"frames bit-equal to KANI_OCC=0 {equal}", flush=True)
+        if len(gate) != 1 or not equal:
+            fail(f"phase 24: api.run with KANI_OCC=auto, {layers} walls")
+    return res
+
+
 def band_row(rows: list, source: str, replaces: str) -> dict:
     """A band kernel's row of the kernels line: each number the mean over
     the bands, the error their maximum, bound_by that of the band with the
@@ -1409,6 +1772,7 @@ def main() -> int:
         if differ:
             fail(f"phase 12 {case.name}: kernels disagree with their plain "
                  "versions")
+        occ_cases(case, sq, card)
 
 
     # ---- phases 13-19: the application path ----
@@ -1436,6 +1800,38 @@ def main() -> int:
     distributed_form(whole, card, forms)
     from kanirenderer_tpu_torch.parallel.mesh import dryrun_multichip
     dryrun_multichip(2)
+
+    # ---- phase 24: occlusion ----
+    tmp = tempfile.mkdtemp(prefix="kani_smoke_occ_")
+    try:
+        occ = occlusion(scene, state, g, cfg,
+                        flythrough.MODE_CONFIGS["wireframe"], card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels["rasterize_depth"].update(
+        ms_skip_off=occ["K1"]["ms_off"], skipped_share=occ["K1"]["share"])
+    kernels["rasterize_depth_band"].update(
+        ms_skip_off=statistics.mean(occ[f"K1 band {k}/4"]["ms_off"]
+                                    for k in range(4)),
+        skipped_share=statistics.mean(occ[f"K1 band {k}/4"]["share"]
+                                      for k in range(4)))
+    for name, key in (("rasterize_pixels_band", "K2 band"),
+                      ("rasterize_pixels_wireframe_band", "K2w band")):
+        kernels[name].update(
+            ms_skip_on_layered=occ[f"{key} layered"]["ms_on"],
+            ms_skip_off_layered=occ[f"{key} layered"]["ms_off"],
+            skipped_share_layered=occ[f"{key} layered"]["share"])
+    for name, key in (("rasterize_pixels", "K2"),
+                      ("rasterize_pixels_wireframe", "K2w"),
+                      ("rasterize_visibility", "K3"),
+                      ("rasterize_visibility", "K3w")):
+        sfx = "_wireframe" if key == "K3w" else ""
+        for where in ("bench pose", "layered"):
+            w = where.split()[0]
+            kernels[name].update({
+                f"ms_skip_on_{w}{sfx}": occ[f"{key} {where}"]["ms_on"],
+                f"ms_skip_off_{w}{sfx}": occ[f"{key} {where}"]["ms_off"],
+                f"skipped_share_{w}{sfx}": occ[f"{key} {where}"]["share"]})
     if not (kernels["rasterize_depth"]["launches_loop_steady"]
             and kernels["rasterize_pixels"]["launches_loop_steady"]
             and kernels["rasterize_pixels_wireframe"]["launches_events"]):
@@ -1458,7 +1854,8 @@ def main() -> int:
         # and 17).
         rows.append({f: k[f] for f in (*order, *(
             f for f in k if f.endswith("_wireframe") or f == "bands"
-            or f.startswith(("launches_", "ms_")) and f not in order))})
+            or f.startswith(("launches_", "ms_", "skipped_share"))
+            and f not in order))})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

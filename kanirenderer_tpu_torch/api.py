@@ -20,10 +20,13 @@ import time
 import numpy as np
 import torch
 
-from kanirenderer_tpu_torch.core.types import RenderConfig, RenderMode
+from kanirenderer_tpu_torch.core.types import (RenderConfig, RenderMode,
+                                               default_camera,
+                                               default_lights, frame_state)
 from kanirenderer_tpu_torch.io import obj as obj_mod
 from kanirenderer_tpu_torch.io.scene_loader import SceneBuilder
 from kanirenderer_tpu_torch.models.procedural import make_cube_obj
+from kanirenderer_tpu_torch.ops.occ_replay import choose_occ_scope
 from kanirenderer_tpu_torch.runtime.loop import run_loop, scripted_flythrough
 
 
@@ -80,8 +83,14 @@ def run(file_path: str = "", file_type: str = "opengl",
     headless runtime through the environment: KANI_WIDTH, KANI_HEIGHT,
     KANI_FRAMES, KANI_SINK (png|gif|window|null), KANI_OUT, KANI_MODE,
     KANI_RENDER_SCALE (render at 1/s of the resolution),
-    KANI_PRESENT_SCALE (present a 1/s preview; default 1) and KANI_PROFILE
-    (a directory: write a ``torch.profiler`` trace of the run there).
+    KANI_PRESENT_SCALE (present a 1/s preview; default 1), KANI_PROFILE
+    (a directory: write a ``torch.profiler`` trace of the run there) and
+    KANI_OCC, the occlusion skip's scope (RenderConfig.occ_scope): "0"
+    none, "shadow" (the default) the shadow raster, "1" every raster, or
+    "auto": at load, ops/occ_replay.choose_occ_scope replays the skip at
+    the default camera and lights and picks "1" or "shadow" (printed when
+    ``verbose``; a failing gate raises).  Every scope renders the same
+    pixels.
     """
     width = int(os.environ.get("KANI_WIDTH", width))
     height = int(os.environ.get("KANI_HEIGHT", height))
@@ -104,6 +113,18 @@ def run(file_path: str = "", file_type: str = "opengl",
         width=width, height=height, mode=mode, hdr=use_hdr,
         cache_shadow_map=cache_shadow_map,
         present_scale=max(int(os.environ.get("KANI_PRESENT_SCALE", "1")), 1))
+    occ = os.environ.get("KANI_OCC")
+    if occ == "auto":
+        t0 = time.perf_counter()
+        state = frame_state(scene, default_camera(device=scene.device),
+                            default_lights(device=scene.device))
+        occ, est = choose_occ_scope(scene, state, cfg)
+        if verbose:
+            print(f"occlusion gate: scope {occ} (evaluations spared "
+                  f"{est['eval_drop']:.1%}, chunks skipped "
+                  f"{est['run_skip']:.1%}, {time.perf_counter() - t0:.2f} s)")
+    if occ is not None:
+        cfg = cfg.with_(occ_scope=occ)
     # A live window is both sink and event source, like the reference's
     # winit loop (src/lib.rs:2091-2140); a host without a display falls
     # back to scripted events and the window sink's PNG dumps.

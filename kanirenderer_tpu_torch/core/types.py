@@ -140,9 +140,14 @@ class RenderConfig:
     output_u8, present_scale, wire_thresh_px, tile_w/tile_h/shadow_tile_h
     (one CUDA block per tile, one thread per pixel, so tile_w·tile_h is
     the block size) and the per-tile chunk caps max_chunks_per_tile /
-    shadow_chunks_per_tile.  cache_shadow_map is read by the interactive
-    loop (runtime/loop.py), which then reuses the PCF table while the sun
-    and the geometry stand still; ``render_frame`` itself renders what its
+    shadow_chunks_per_tile, and occ_scope, the occlusion skip's scope
+    (ops/raster_cuda.occ_on): "env" defers to KANI_OCC (default
+    "shadow": the depth-only shadow raster skips), "0" | "shadow" | "1"
+    override it; api.run sets it from KANI_OCC, and KANI_OCC=auto picks
+    "1" or "shadow" at load (ops/occ_replay.choose_occ_scope).  Every
+    scope renders the same pixels.  cache_shadow_map is read by the
+    interactive loop (runtime/loop.py), which then reuses the PCF table
+    while the sun and the geometry stand still; ``render_frame`` itself renders what its
     arguments say.  The remaining fields tune the TPU path and are carried
     only so a configuration reads the same in both packages.
     """
@@ -171,7 +176,7 @@ class RenderConfig:
     deferred: bool = False
     output_u8: bool = False
     present_scale: int = 1
-    occ_scope: str = "0"
+    occ_scope: str = "env"
     wire_thresh_px: float = 0.7
     raster_tri_batch: int = 8
 

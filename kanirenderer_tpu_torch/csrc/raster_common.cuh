@@ -23,6 +23,29 @@
 // the visiting threads take them from it by shuffle.  K2, K2w and K3 share
 // the whole loop (tile_tournament).
 //
+// Occlusion skip (the Pallas kernels' O1, raster_pallas.py:178-276), on
+// when the wrapper passes the chunks' depth bounds (ops/binning
+// depth_bound, ChunkBins.bound; the lists then come nearest first), built
+// as separate instantiations (kOcc), as are the counters (kCount), so that
+// a build with neither compiles to the code without the skip.  At the
+// start of each round of chunks every warp takes the greatest depth its
+// stored pixels have resolved (z only falls, so the value stays an upper
+// bound), the block the greatest over its warps, and
+// the cull skips a chunk, bbox test, fetch and evaluation, whose bound is
+// greater than the tile's (cull_chunks_ordered; the masks of such a
+// chunk are taken all the same, to save a barrier).  That cull lays the
+// hits out in list order, nearest chunk first, and before each batch of 32
+// hits a warp takes its resolved depth again; visit_hits drops, beside
+// may_cover, a hit whose least depth over the warp's rectangle
+// (depth_min, exact as edge_max) is greater.  So the skip fires within a
+// tile's first round, with no round or barrier more.  Both tests are
+// strict: a dropped triangle can neither win a pixel nor tie one, and the
+// outputs are those without the skip bit for bit.  Pixels that are not
+// stored (past the raster, outside a band) take no part in the maxima.
+// A counting build (kCount) adds, per block, for ops/occ_replay to replay:
+// chunks tested and skipped, warp visits of hits, hits dropped by the
+// depth test (OccCount; without kOcc only the visits).
+//
 // Floating-point order: a plane is evaluated as (a*X + c) + b*Y in round-to-
 // nearest with no fused multiply-add, the order of the reference Pallas
 // kernel (raster_pallas.py:488-506) and of the plain PyTorch versions in
@@ -36,6 +59,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace kani {
 
@@ -127,6 +152,11 @@ __device__ __forceinline__ bool covers_mode(const Planes& t, const Scales& g,
 constexpr int kBatch = 32;   // hits staged per ring slot: one per lane
 constexpr int kStages = 3;   // ring slots: two batches in flight, one in use
 
+// The occlusion counters of a block: chunks tested against their bound,
+// chunks skipped, warp visits of hits (a visit evaluates the hit at the
+// warp's 32 pixels), hits dropped by the depth test.
+enum OccCount { kTested, kSkipped, kVisits, kDropped, kCounts };
+
 // Shared-memory state of one block: the hit list of up to kCap global
 // triangle row ids (unordered), its length, and the ring of staged planes.
 template <int kCap>
@@ -135,6 +165,22 @@ struct HitStage {
   Planes ring[kStages][kBatch];
   int count;
 };
+
+// With the occlusion skip or the counters, besides: the warps' resolved
+// depths (as int bits), the counters and the ordered cull's per-chunk
+// masks.
+template <int kCap>
+struct OccStage : HitStage<kCap> {
+  int wmax[32];
+  int occ[kCounts];
+  uint32_t cmask[kCap / kChunk][4];  // cull_chunks_ordered's hit masks
+  int ctot[kCap / kChunk];           // and hit counts, per chunk
+};
+
+// The stage of a build: HitStage alone without the skip and the counters.
+template <int kCap, bool kOcc, bool kCount>
+using StageOf =
+    std::conditional_t<kOcc || kCount, OccStage<kCap>, HitStage<kCap>>;
 
 // Pixel (lx, ly) of this thread within its tile.  A warp takes an 8 x 4
 // patch where the tile divides into such patches, else 32 pixels in raster
@@ -215,6 +261,34 @@ __device__ __forceinline__ bool may_pass(const Planes& t, const Scales& g,
            edge_dist_min(t.p1.z, t.p1.w, t.p2.x, g.g2, r) > thresh);
 }
 
+// The least depth the plane (za, zb, zc) of t takes at a pixel centre of
+// r, or NaN: the corner the signs of za and zb point away from (the
+// argument of edge_max, turned round).  With zc finite and za, zb not NaN,
+// a covered pixel of r has a depth no less than this; otherwise t covers
+// nothing (ops/binning.depth_bound).  So a value greater than the depth a
+// warp has resolved means t cannot win or tie any pixel of the warp.
+__device__ __forceinline__ float depth_min(const Planes& t, const Rect& r) {
+  return plane(t.p2.y, t.p2.z, t.p2.w, t.p2.y >= 0.f ? r.x0 : r.x1,
+               t.p2.z >= 0.f ? r.y0 : r.y1);
+}
+
+// The greatest of z over the lanes of the warp where `stored`, as float
+// bits (0 where no lane is stored).  Depths here are never NaN and lie in
+// [-0.0, 1.0], where the order of non-negative floats is that of their
+// bits; -0.0 reads as less than +0.0, which compares equal to it.
+__device__ __forceinline__ int warp_zmax(float z, bool stored) {
+  return __reduce_max_sync(0xffffffffu, stored ? __float_as_int(z) : 0);
+}
+
+// The tile's resolved depth: the greatest of the warps' (s->wmax), read by
+// every thread after the barrier that follows their store.
+template <int kCap>
+__device__ __forceinline__ float tile_zmax(const OccStage<kCap>* s) {
+  const int lane = threadIdx.x & 31;
+  const int v = lane < (int)(blockDim.x >> 5) ? s->wmax[lane] : 0;
+  return __int_as_float(__reduce_max_sync(0xffffffffu, v));
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
@@ -271,6 +345,66 @@ __device__ __forceinline__ void cull_chunks(HitStage<kCap>* s,
   }
 }
 
+// The cull of the occlusion skip: as cull_chunks, but the hits are laid
+// out in the order of ids[] (chunk by chunk, ascending row within a
+// chunk), so that the nearest come first, and a chunk whose depth bound is
+// greater than the tile's resolved depth (the greatest of s->wmax, which
+// every warp stores before the call) is left out; it sets s->count itself.
+// Two phases around one barrier: every warp takes the bbox masks of its
+// chunks, then takes the skips and places the hits (no atomics, no barrier
+// more than cull_chunks costs).  With kCount, the tests go into s->occ.
+// n <= min(32, kCap / kChunk); the caller puts a __syncthreads() before
+// (after the previous visit) and after the call.
+template <bool kCount, int kCap>
+__device__ __forceinline__ void cull_chunks_ordered(
+    OccStage<kCap>* s, const float4* __restrict__ bbox, const int* ids,
+    int n, float tx0, float tx1, float ty0, float ty1,
+    const float* __restrict__ bound) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  // chunk `lane`'s bound, loaded while the masks are taken
+  const float cbound = lane < n ? bound[ids[lane]] : 0.f;
+  for (int i = threadIdx.x >> 5; i < n; i += warps) {
+    const int row0 = ids[i] * kChunk;
+    int total = 0;
+    uint32_t mine = 0;   // lane q < 4 keeps mask q
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 b = bbox[row0 + q * 32 + lane];
+      const uint32_t m = __ballot_sync(
+          0xffffffffu, b.x < tx1 && b.z > tx0 && b.y < ty1 && b.w > ty0);
+      total += __popc(m);
+      if (lane == q) mine = m;
+    }
+    if (lane < 4) s->cmask[i][lane] = mine;
+    if (lane == 0) s->ctot[i] = total;
+  }
+  __syncthreads();
+  const float zmax = tile_zmax(s);
+  const bool skip = lane < n && cbound > zmax;  // chunk `lane`
+  const uint32_t skips = __ballot_sync(0xffffffffu, skip);
+  const int kept = lane < n && !skip ? s->ctot[lane] : 0;
+  const uint32_t below = (1u << lane) - 1u;
+  for (int i = threadIdx.x >> 5; i < n; i += warps) {
+    if (kCount && lane == 0) {
+      atomicAdd(&s->occ[kTested], 1);
+      if ((skips >> i) & 1u) atomicAdd(&s->occ[kSkipped], 1);
+    }
+    if ((skips >> i) & 1u) continue;  // uniform over the warp
+    int base = __reduce_add_sync(0xffffffffu, lane < i ? kept : 0);
+    const int row0 = ids[i] * kChunk;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t m = s->cmask[i][q];
+      if ((m >> lane) & 1u)
+        s->list[base + __popc(m & below)] = row0 + q * 32 + lane;
+      base += __popc(m);
+    }
+  }
+  const int total = __reduce_add_sync(0xffffffffu, kept);
+  if (threadIdx.x == 0) s->count = total;
+}
+
 // Evaluate: call visit(planes, row id, scales) for those of the first
 // `hits` entries of s->list that may cover a pixel of the warp's rectangle
 // `rect`, the same sequence in every thread of a warp.  With kWire, hits
@@ -282,11 +416,18 @@ __device__ __forceinline__ void cull_chunks(HitStage<kCap>* s,
 // batch b is evaluated, with one barrier per batch.  `hits` must be uniform
 // over the block; the caller puts a __syncthreads() between the cull and
 // this call, and another before the list or the ring is written again.
-template <bool kWire, int kCap, typename Visit>
-__device__ __forceinline__ void visit_hits(HitStage<kCap>* s,
+// With kZ (the occlusion skip), hits whose depth_min over the rectangle
+// is greater than zcut(), the warp's resolved depth, taken by every lane
+// before each batch, are dropped too; with kCount, the warp's visits and
+// such drops go into s->occ (an OccStage).  Without kZ, zcut is not
+// called; with neither, this is the loop without the skip.
+template <bool kWire, bool kZ, bool kCount, typename Stage, typename Visit,
+          typename Cut>
+__device__ __forceinline__ void visit_hits(Stage* s,
                                            const float* __restrict__ setup,
                                            int hits, const Rect& rect,
-                                           float thresh, Visit&& visit) {
+                                           float thresh, Cut&& zcut,
+                                           Visit&& visit) {
   static_assert(kStages == 3, "the waits below assume a three-slot ring");
   static_assert(kBatch == 32, "one hit per lane in the rectangle test");
   const int lane = threadIdx.x & 31;
@@ -322,7 +463,19 @@ __device__ __forceinline__ void visit_hits(HitStage<kCap>* s,
         keep = may_pass(tri[lane], g, rect, thresh);
       }
     }
+    uint32_t edges = 0;  // the hits before the depth test, if counted
+    if constexpr (kCount) edges = __ballot_sync(0xffffffffu, keep);
+    if constexpr (kZ) {
+      const float cut = zcut();
+      keep = keep && !(depth_min(tri[lane], rect) > cut);
+    }
     uint32_t m = __ballot_sync(0xffffffffu, keep);
+    if constexpr (kCount) {
+      if (lane == 0) {
+        atomicAdd(&s->occ[kVisits], __popc(m));
+        atomicAdd(&s->occ[kDropped], __popc(edges & ~m));
+      }
+    }
     while (m) {
       const int j = __ffs(m) - 1;
       m &= m - 1;
@@ -341,7 +494,27 @@ __device__ __forceinline__ void visit_hits(HitStage<kCap>* s,
 // ---- phase 1 of K2, K2w and K3 ----
 
 constexpr int kRound = 16;  // chunks culled per round
-using TileStage = HitStage<kRound * kChunk>;
+
+// The shared-memory stage of phase 1 in a build with (kOcc) or without the
+// skip, with (kCount) or without the counters.
+template <bool kOcc, bool kCount>
+using TileStage = StageOf<kRound * kChunk, kOcc, kCount>;
+
+// Write the block's occlusion counters to counts[blockIdx.x * kCounts ..].
+// Every thread of the block must call it.
+template <int kCap>
+__device__ __forceinline__ void flush_counts(OccStage<kCap>* s,
+                                             int* __restrict__ counts) {
+  __syncthreads();
+  if (threadIdx.x < kCounts)
+    counts[blockIdx.x * kCounts + threadIdx.x] = s->occ[threadIdx.x];
+}
+
+// Zero the block's occlusion counters; the next barrier publishes it.
+template <int kCap>
+__device__ __forceinline__ void zero_counts(OccStage<kCap>* s) {
+  if (threadIdx.x < kCounts) s->occ[threadIdx.x] = 0;
+}
 
 // The (z, global triangle id) tournament of one tile for the pixel centre
 // (X, Y) of this thread: over the triangles of chunks ids[0..n) that cover
@@ -349,34 +522,52 @@ using TileStage = HitStage<kRound * kChunk>;
 // (the hit list is unordered, so the compare is lexicographic, which is
 // what a strict `<` over ascending ids gives).  The caller sets *best_z to
 // the cleared depth and *best to -1.  Rounds of kRound chunks: cull by
-// bbox, then visit the hits, so the list cannot overflow.  Every thread of
-// the block must call it, with the tile's origin (tx0, ty0) and `rect` from
+// bbox, then visit the hits, so the list cannot overflow.  With kOcc the
+// occlusion skip is on, against `bound` (the chunks' depth bounds), over
+// the pixels where `stored`; with kCount, the block's occlusion counters
+// go to `counts`; with neither, both are unused.  Every thread of the
+// block must call it, with the tile's origin (tx0, ty0) and `rect` from
 // warp_rect.
-template <bool kWire>
+template <bool kWire, bool kOcc, bool kCount>
 __device__ __forceinline__ void tile_tournament(
-    TileStage* s, const float* __restrict__ setup,
+    TileStage<kOcc, kCount>* s, const float* __restrict__ setup,
     const float4* __restrict__ bbox, const int* __restrict__ ids, int n,
     int tx0, int ty0, int tile_w, int tile_h, float X, float Y,
-    const Rect& rect, float thresh, float* best_z, int* best) {
+    const Rect& rect, float thresh, bool stored,
+    const float* __restrict__ bound, int* __restrict__ counts,
+    float* best_z, int* best) {
   float bz = *best_z;
   int bi = *best;
+  if constexpr (kCount) zero_counts(s);
   for (int i0 = 0; i0 < n; i0 += kRound) {
-    __syncthreads();  // the previous round has left the list and the ring
-    if (threadIdx.x == 0) s->count = 0;
+    if constexpr (kOcc) {
+      const int wmax = warp_zmax(bz, stored);
+      __syncthreads();  // the previous round has left the list and the ring
+      if ((threadIdx.x & 31) == 0) s->wmax[threadIdx.x >> 5] = wmax;
+      cull_chunks_ordered<kCount>(s, bbox, ids + i0, min(kRound, n - i0),
+                                  (float)tx0, (float)(tx0 + tile_w),
+                                  (float)ty0, (float)(ty0 + tile_h), bound);
+    } else {
+      __syncthreads();  // the previous round has left the list and the ring
+      if (threadIdx.x == 0) s->count = 0;
+      __syncthreads();
+      cull_chunks(s, bbox, ids + i0, min(kRound, n - i0), (float)tx0,
+                  (float)(tx0 + tile_w), (float)ty0, (float)(ty0 + tile_h));
+    }
     __syncthreads();
-    cull_chunks(s, bbox, ids + i0, min(kRound, n - i0), (float)tx0,
-                (float)(tx0 + tile_w), (float)ty0, (float)(ty0 + tile_h));
-    __syncthreads();
-    visit_hits<kWire>(s, setup, s->count, rect, thresh,
-                      [&](const Planes& t, int id, const Scales& g) {
-      float z;
-      if (covers_mode<kWire>(t, g, X, Y, thresh, &z) &&
-          (z < bz || (z == bz && id < bi))) {
-        bz = z;
-        bi = id;
-      }
-    });
+    visit_hits<kWire, kOcc, kCount>(
+        s, setup, s->count, rect, thresh,
+        [&] { return __int_as_float(warp_zmax(bz, stored)); },
+        [&](const Planes& t, int id, const Scales& g) {
+          float z;
+          if (covers_mode<kWire>(t, g, X, Y, thresh, &z) &&
+              (z < bz || (z == bz && id < bi))) {
+            bz = z;
+            bi = id;
+          }
+        });
   }
+  if constexpr (kCount) flush_counts(s, counts);
   *best_z = bz;
   *best = bi;
 }

@@ -51,7 +51,8 @@
 // (exact too, edge_dist_min) and get each survivor's edge scales
 // 1/sqrt(a^2 + b^2 + 1e-30) from the one lane that tested it, instead of
 // three square roots and divisions per pixel.  The loop is
-// raster_common.cuh tile_tournament, shared with K3.
+// raster_common.cuh tile_tournament, shared with K3, with the occlusion
+// skip (O1, raster_pallas.py:178-276) where the bins carry bounds.
 // Phase 2 consumes the record piecewise (edge rows, then four varyings at a
 // time) under a register limit that keeps six blocks of 256 threads on an
 // SM; held whole, the record's 76 lanes cost 80 registers and leave three.
@@ -81,10 +82,14 @@ __device__ __forceinline__ float plane_abc(float a, float b, float c,
 
 // kMaxThreads and kMinBlocks set the register limit: blocks of up to 256
 // threads run kBlocks to an SM (six: 40 registers; five: 48, where K2w
-// stops spilling), larger blocks take what they need.
+// stops spilling), larger blocks take what they need.  kOcc: the
+// occlusion skip, against `bound`; kCount: the occlusion counters, into
+// `counts` (raster_common.cuh).  Each is a separate instantiation, so that
+// the build with neither is the code without them.
 constexpr int kBlocksK2 = 6, kBlocksK2w = 5;
 
-template <bool kWire, int kMaxThreads, int kMinBlocks>
+template <bool kWire, bool kOcc, bool kCount, int kMaxThreads,
+          int kMinBlocks>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     raster_pixels_kernel(
     const float* __restrict__ records, const float* __restrict__ setup,
@@ -92,8 +97,9 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     const int* __restrict__ tile_count, const int* __restrict__ chunk,
     float* __restrict__ z_out, float* __restrict__ vary_out,
     int* __restrict__ int_out, int width, int height, int band_h, int y0,
-    int y_stride, int tiles_x, int tile_w, int tile_h, float wire_thresh) {
-  __shared__ kani::TileStage s;
+    int y_stride, int tiles_x, int tile_w, int tile_h, float wire_thresh,
+    const float* __restrict__ bound, int* __restrict__ counts) {
+  __shared__ kani::TileStage<kOcc, kCount> s;
   const int tile = blockIdx.x;
   const int row = tile / tiles_x;  // the band's tile row
   const int tx0 = (tile % tiles_x) * tile_w;
@@ -110,9 +116,12 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
   // ---- phase 1: visibility tournament over the bbox hits ----
   float best_z = 1.0f;
   int best = -1;
-  kani::tile_tournament<kWire>(&s, setup, bbox, chunk + tile_start[tile],
+  const bool stored = px < width && py < height && by < band_h;
+  kani::tile_tournament<kWire, kOcc, kCount>(&s, setup, bbox,
+                                     chunk + tile_start[tile],
                                tile_count[tile], tx0, ty0, tile_w, tile_h, X,
-                               Y, rect, wire_thresh, &best_z, &best);
+                               Y, rect, wire_thresh, stored, bound, counts,
+                               &best_z, &best);
 
   // ---- phase 2: interpolate the winner's record ----
   // A warp none of whose pixels has a winner writes the defaults.  In any
@@ -196,22 +205,33 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
   int_out[5 * hw + p] = best;
 }
 
+// The instantiation with (bound) or without the occlusion skip, with
+// (counts) or without the counters.
+template <bool kWire, int kMaxThreads, int kMinBlocks>
+auto pick(const float* bound, const int* counts) {
+  constexpr int T = kMaxThreads, B = kMinBlocks;
+  return bound ? (counts ? raster_pixels_kernel<kWire, true, true, T, B>
+                         : raster_pixels_kernel<kWire, true, false, T, B>)
+               : (counts ? raster_pixels_kernel<kWire, false, true, T, B>
+                         : raster_pixels_kernel<kWire, false, false, T, B>);
+}
+
 template <bool kWire>
 int launch(const float* records, const float* setup, const float* bbox,
            const int* tile_start, const int* tile_count, const int* chunk,
            float* z_out, float* vary_out, int* int_out, int width, int height,
            int band_h, int y0, int y_stride, int tiles_x, int num_tiles,
-           int tile_w, int tile_h, float wire_thresh, void* stream) {
+           int tile_w, int tile_h, float wire_thresh, const float* bound,
+           int* counts, void* stream) {
   if (num_tiles > 0) {
     const int threads = tile_w * tile_h;
-    auto kernel = threads <= 256
-                      ? raster_pixels_kernel<kWire, 256,
-                                             kWire ? kBlocksK2w : kBlocksK2>
-                      : raster_pixels_kernel<kWire, 1024, 1>;
+    constexpr int kBlocks = kWire ? kBlocksK2w : kBlocksK2;
+    auto kernel = threads <= 256 ? pick<kWire, 256, kBlocks>(bound, counts)
+                                 : pick<kWire, 1024, 1>(bound, counts);
     kernel<<<num_tiles, threads, 0, (cudaStream_t)stream>>>(
         records, setup, reinterpret_cast<const float4*>(bbox), tile_start,
         tile_count, chunk, z_out, vary_out, int_out, width, height, band_h, y0,
-        y_stride, tiles_x, tile_w, tile_h, wire_thresh);
+        y_stride, tiles_x, tile_w, tile_h, wire_thresh, bound, counts);
   }
   return (int)cudaGetLastError();
 }
@@ -219,7 +239,9 @@ int launch(const float* records, const float* setup, const float* bbox,
 }  // namespace
 
 // The outputs hold band_h rows of the width x height frame (band_h = height,
-// y0 = 0, y_stride = 1 for the whole frame).
+// y0 = 0, y_stride = 1 for the whole frame).  `bound`: the chunks' depth
+// bounds (the occlusion skip), or null; `counts`: room for kCounts ints
+// per tile, or null.
 extern "C" int kani_rasterize_pixels(const float* records, const float* setup,
                                      const float* bbox, const int* tile_start,
                                      const int* tile_count, const int* chunk,
@@ -227,11 +249,12 @@ extern "C" int kani_rasterize_pixels(const float* records, const float* setup,
                                      int* int_out, int width, int height,
                                      int band_h, int y0, int y_stride,
                                      int tiles_x, int num_tiles, int tile_w,
-                                     int tile_h, void* stream) {
+                                     int tile_h, const float* bound,
+                                     int* counts, void* stream) {
   return launch<false>(records, setup, bbox, tile_start, tile_count, chunk,
                        z_out, vary_out, int_out, width, height, band_h, y0,
                        y_stride, tiles_x, num_tiles, tile_w, tile_h, 0.f,
-                       stream);
+                       bound, counts, stream);
 }
 
 extern "C" int kani_rasterize_pixels_wireframe(
@@ -239,9 +262,10 @@ extern "C" int kani_rasterize_pixels_wireframe(
     const int* tile_start, const int* tile_count, const int* chunk,
     float* z_out, float* vary_out, int* int_out, int width, int height,
     int band_h, int y0, int y_stride, int tiles_x, int num_tiles, int tile_w,
-    int tile_h, float wire_thresh, void* stream) {
+    int tile_h, float wire_thresh, const float* bound, int* counts,
+    void* stream) {
   return launch<true>(records, setup, bbox, tile_start, tile_count, chunk,
                       z_out, vary_out, int_out, width, height, band_h, y0,
                       y_stride, tiles_x, num_tiles, tile_w, tile_h,
-                      wire_thresh, stream);
+                      wire_thresh, bound, counts, stream);
 }

@@ -18,8 +18,9 @@
 // Design: phase 1 is K2's, the same function (raster_common.cuh
 // tile_tournament): one block per tile, one thread per pixel in 8 x 4
 // patches per warp, bbox-first hit compaction, the hits' planes through the
-// cp.async ring, the exact per-warp rejections, and for wireframe the edge
-// scales once per (warp, hit).  The tournament keeps only (z, id) in
+// cp.async ring, the exact per-warp rejections, for wireframe the edge
+// scales once per (warp, hit), and the occlusion skip (O1) where the bins
+// carry bounds.  The tournament keeps only (z, id) in
 // registers; the winner's three edge planes are evaluated once more at
 // the end from its setup row (48 bytes per covered pixel, mostly from L2),
 // which gives the same bits as keeping them from the tournament and spares
@@ -30,18 +31,21 @@
 namespace {
 
 // kMaxThreads and kMinBlocks set the register limit as in raster_pixels.cu:
-// blocks of up to 256 threads run six to an SM, with or without wireframe.
+// blocks of up to 256 threads run six to an SM, with or without wireframe
+// and with or without the occlusion skip (kOcc) and its counters (kCount).
 constexpr int kBlocks = 6;
 
-template <bool kWire, int kMaxThreads, int kMinBlocks>
+template <bool kWire, bool kOcc, bool kCount, int kMaxThreads,
+          int kMinBlocks>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     raster_visibility_kernel(
     const float* __restrict__ setup, const float4* __restrict__ bbox,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
     const int* __restrict__ chunk, int* __restrict__ tri_out,
     float* __restrict__ z_out, float2* __restrict__ bary_out, int width,
-    int height, int tiles_x, int tile_w, int tile_h, float wire_thresh) {
-  __shared__ kani::TileStage s;
+    int height, int tiles_x, int tile_w, int tile_h, float wire_thresh,
+    const float* __restrict__ bound, int* __restrict__ counts) {
+  __shared__ kani::TileStage<kOcc, kCount> s;
   const int tile = blockIdx.x;
   const int tx0 = (tile % tiles_x) * tile_w;
   const int ty0 = (tile / tiles_x) * tile_h;
@@ -55,9 +59,12 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 
   float best_z = 1.0f;
   int best = -1;
-  kani::tile_tournament<kWire>(&s, setup, bbox, chunk + tile_start[tile],
+  kani::tile_tournament<kWire, kOcc, kCount>(&s, setup, bbox,
+                                     chunk + tile_start[tile],
                                tile_count[tile], tx0, ty0, tile_w, tile_h, X,
-                               Y, rect, wire_thresh, &best_z, &best);
+                               Y, rect, wire_thresh,
+                               px < width && py < height, bound, counts,
+                               &best_z, &best);
   if (px >= width || py >= height) return;
 
   const size_t p = (size_t)py * width + px;
@@ -77,21 +84,31 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
   bary_out[p] = make_float2(__fdiv_rn(l1, lsafe), __fdiv_rn(l2, lsafe));
 }
 
+// The instantiation with (bound) or without the occlusion skip, with
+// (counts) or without the counters.
+template <bool kWire, int kMaxThreads, int kMinBlocks>
+auto pick(const float* bound, const int* counts) {
+  constexpr int T = kMaxThreads, B = kMinBlocks;
+  return bound ? (counts ? raster_visibility_kernel<kWire, true, true, T, B>
+                         : raster_visibility_kernel<kWire, true, false, T, B>)
+               : (counts ? raster_visibility_kernel<kWire, false, true, T, B>
+                         : raster_visibility_kernel<kWire, false, false, T, B>);
+}
+
 template <bool kWire>
 int launch(const float* setup, const float* bbox, const int* tile_start,
            const int* tile_count, const int* chunk, int* tri_out,
            float* z_out, float* bary_out, int width, int height, int tiles_x,
            int num_tiles, int tile_w, int tile_h, float wire_thresh,
-           void* stream) {
+           const float* bound, int* counts, void* stream) {
   if (num_tiles > 0) {
     const int threads = tile_w * tile_h;
-    auto kernel = threads <= 256
-                      ? raster_visibility_kernel<kWire, 256, kBlocks>
-                      : raster_visibility_kernel<kWire, 1024, 1>;
+    auto kernel = threads <= 256 ? pick<kWire, 256, kBlocks>(bound, counts)
+                                 : pick<kWire, 1024, 1>(bound, counts);
     kernel<<<num_tiles, threads, 0, (cudaStream_t)stream>>>(
         setup, reinterpret_cast<const float4*>(bbox), tile_start, tile_count,
         chunk, tri_out, z_out, reinterpret_cast<float2*>(bary_out), width,
-        height, tiles_x, tile_w, tile_h, wire_thresh);
+        height, tiles_x, tile_w, tile_h, wire_thresh, bound, counts);
   }
   return (int)cudaGetLastError();
 }
@@ -102,13 +119,15 @@ extern "C" int kani_rasterize_visibility(
     const float* setup, const float* bbox, const int* tile_start,
     const int* tile_count, const int* chunk, int* tri_out, float* z_out,
     float* bary_out, int width, int height, int tiles_x, int num_tiles,
-    int tile_w, int tile_h, int wireframe, float wire_thresh, void* stream) {
+    int tile_w, int tile_h, int wireframe, float wire_thresh,
+    const float* bound, int* counts, void* stream) {
   return wireframe
              ? launch<true>(setup, bbox, tile_start, tile_count, chunk,
                             tri_out, z_out, bary_out, width, height, tiles_x,
-                            num_tiles, tile_w, tile_h, wire_thresh, stream)
+                            num_tiles, tile_w, tile_h, wire_thresh, bound,
+                            counts, stream)
              : launch<false>(setup, bbox, tile_start, tile_count, chunk,
                              tri_out, z_out, bary_out, width, height,
                              tiles_x, num_tiles, tile_w, tile_h, wire_thresh,
-                             stream);
+                             bound, counts, stream);
 }

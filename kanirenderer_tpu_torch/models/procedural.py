@@ -139,19 +139,16 @@ def _add_patches(b: SceneBuilder, positions, uvs, normals, tris,
         (np.zeros(3, np.float32), np.zeros(4, np.float32)))
 
 
-def layered_scene(layers: int = 4, target_tris: int = 260_000,
-                  tex_size: int = 256, seed: int = 7,
-                  device="cuda") -> Scene:
-    """Occlusion-heavy content: ``layers`` parallel screen-filling walls
-    stacked in depth in front of the default camera (position (0, 5, 10)
-    looking −Z), each subdivided to about target_tris/layers triangles.
-    Everything behind the front wall is fully occluded."""
+def layered_parts(layers: int = 4, target_tris: int = 260_000,
+                  tex_size: int = 256, seed: int = 7):
+    """The layered scene's host arrays, (textures, patches) as
+    ``standin_parts`` gives them: one wall per patch and material."""
     rng = np.random.RandomState(seed)
-    b = SceneBuilder()
+    textures = []
     for i in range(layers):
         col_a = rng.randint(60, 255, 3)
         col_b = (col_a * 0.5).astype(np.int64)
-        b.textures.append(MaterialTextures(
+        textures.append(MaterialTextures(
             name=f"layer_{i}",
             diffuse=_checker_texture(tex_size, col_a, col_b, tiles=8),
             normal=_noise_normal_texture(tex_size, rng)))
@@ -159,7 +156,7 @@ def layered_scene(layers: int = 4, target_tris: int = 260_000,
     per_layer = max(1, target_tris // (2 * layers))
     nu = max(1, int(np.sqrt(per_layer)))
     nv = max(1, per_layer // nu)
-    positions, uvs, normals, tris, mats = [], [], [], [], []
+    patches = []
     vbase = 0
     for k in range(layers):
         z = -200.0 - 200.0 * k
@@ -171,13 +168,22 @@ def layered_scene(layers: int = 4, target_tris: int = 260_000,
         cy = 5.0 - dist * np.tan(np.deg2rad(20.0))
         p, u, n, t = _grid_quads((-hw, cy + hh, z), (2 * hw, 0, 0),
                                  (0, -2 * hh, 0), nu, nv, vbase)
-        positions.append(p)
-        uvs.append(u)
-        normals.append(n)
-        tris.append(t)
-        mats.append(np.full(len(t), k % layers, np.int32))
+        patches.append((p, u, n, t, np.full(len(t), k % layers, np.int32)))
         vbase += len(p)
-    _add_patches(b, positions, uvs, normals, tris, mats)
+    return textures, patches
+
+
+def layered_scene(layers: int = 4, target_tris: int = 260_000,
+                  tex_size: int = 256, seed: int = 7,
+                  device="cuda") -> Scene:
+    """Occlusion-heavy content: ``layers`` parallel screen-filling walls
+    stacked in depth in front of the default camera (position (0, 5, 10)
+    looking −Z), each subdivided to about target_tris/layers triangles.
+    Everything behind the front wall is fully occluded."""
+    b = SceneBuilder()
+    textures, patches = layered_parts(layers, target_tris, tex_size, seed)
+    b.textures.extend(textures)
+    _add_patches(b, *zip(*patches))
     return b.build(device)
 
 

@@ -4,7 +4,8 @@
 
 Times the kernels as built from ``csrc/`` at the bench shapes (sponza
 stand-in, bench pose, 2048² shadow map, 1920×1080; K3's wireframe variant
-also on a few screen-sized triangles), then again from
+also on a few screen-sized triangles; K1 with the occlusion skip of the
+default scope, as the frame runs it), then again from
 temporary copies of ``csrc/`` in which one design element is taken out or
 one constant changed by a textual edit, so that the share of each element
 in the kernels' time can be read off.  A copy that no longer computes the
@@ -12,7 +13,8 @@ kernel's function is marked ``exact=False`` against the plain version;
 its time is what the measurement is for.  An edit whose pattern is no
 longer in the sources raises, so the list is kept in step with them.
 With words on the command line, only the edits whose name holds one of
-them are built.
+them are built.  With the word ``break-even`` alone it measures the
+occlusion skip's break-even instead (``occ_break_even``).
 Times are device times: 20 calls of the wrapper captured into a CUDA graph
 and replayed between two events, so the host's work per call (about 0.04
 ms, which an eager loop reads once a kernel is faster than that) is not in
@@ -21,6 +23,7 @@ them.  Nothing here is used by the renderer.
 
 from __future__ import annotations
 
+import contextlib
 import re
 import shutil
 import subprocess
@@ -38,6 +41,10 @@ from kanirenderer_tpu_torch.ops import raster_cases
 from kanirenderer_tpu_torch.ops import raster_cuda as rc
 from kanirenderer_tpu_torch.passes.frame import frame_geometry
 
+# The occlusion skip's machinery with its tests made never to fire (depths
+# lie in [0, 1]): what it costs where it skips nothing (occ_break_even).
+OCC_NEVER_FIRES = "occlusion machinery, its tests never fire"
+
 # (name, [(file, text, replacement), ...])
 EDITS = [
     ("no per-warp rejection: every bbox hit is evaluated",
@@ -51,8 +58,10 @@ EDITS = [
        "if (kani::covers(t, X, Y, &z)) acc = fminf(acc, z);",
        "acc = fminf(acc, t.p2.w + 2.0f);")]),
     ("K1 cull only: no staging, no evaluation",
-     [("raster_depth.cu", "kani::visit_hits<false>(",
-       "if (s.count < 0) kani::visit_hits<false>(")]),
+     [("raster_depth.cu", "kani::visit_hits<false, true, kCount>(",
+       "if (s.count < 0) kani::visit_hits<false, true, kCount>("),
+      ("raster_depth.cu", "kani::visit_hits<false, false, kCount>(",
+       "if (s.count < 0) kani::visit_hits<false, false, kCount>(")]),
     ("K1 blocks load their slice and leave",
      [("raster_depth.cu", "if (tile >= 0) {",
        "if (tile >= 0 && entries < 0) {")]),
@@ -61,8 +70,18 @@ EDITS = [
     ("K1 slices of 16 entries",
      [("raster_depth.cu", "kSlice = 8;", "kSlice = 16;")]),
     ("K2, K2w, K3 without phase 1: K2's phase 2 writes the background",
-     [("raster_common.cuh", "for (int i0 = 0; i0 < n; i0 += kRound) {",
+     [("raster_common.cuh",
+       "for (int i0 = 0; i0 < n; i0 += kRound) {",
        "for (int i0 = 0; i0 < n && n < 0; i0 += kRound) {")]),
+    ("occlusion without the per-warp depth test (chunks still skipped)",
+     [("raster_common.cuh",
+       "keep = keep && !(depth_min(tri[lane], rect) > cut);", "")]),
+    (OCC_NEVER_FIRES, [
+        ("raster_common.cuh", "const bool skip = lane < n && cbound > zmax;",
+         "const bool skip = lane < n && cbound > zmax + 4.f;"),
+        ("raster_common.cuh",
+         "keep = keep && !(depth_min(tri[lane], rect) > cut);",
+         "keep = keep && !(depth_min(tri[lane], rect) > cut + 4.f);")]),
     ("K2 phase 1 only: pixels with a winner write their depth and stop",
      [("raster_pixels.cu", "  if (!any_won) {\n",
        "  if (won) return;\n  if (true) {\n")]),
@@ -161,6 +180,29 @@ def ptxas_summary() -> str:
     return ", ".join(out)
 
 
+@contextlib.contextmanager
+def edited_kernels(edits):
+    """The kernel library built from a temporary copy of ``csrc/`` with the
+    textual ``edits`` [(file, text, replacement)] (each text must be in
+    its file exactly once), loaded in place of the library as built for
+    the ``with`` block."""
+    source = rc.CSRC
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = Path(tmp) / "csrc"
+        shutil.copytree(source, copy)
+        for fname, old, new in edits:
+            text = (copy / fname).read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"{old!r} is not in {fname} exactly once")
+            (copy / fname).write_text(text.replace(old, new))
+        rc.CSRC, rc._lib = copy, None
+        try:
+            rc.load_kernels()
+            yield
+        finally:
+            rc.CSRC, rc._lib = source, None
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Mean device time of one call: ``reps`` calls captured into a CUDA
     graph and replayed, so the host's work per call is not in it."""
@@ -181,6 +223,91 @@ def device_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def occ_break_even() -> float:
+    """The share of K2's evaluations the occlusion skip must spare to pay
+    on this card, from measured points: K2 at 1920x1080 (BENCH_CONFIG) on
+    the sponza stand-in at the bench pose and on ``layered_scene(layers=L)``
+    (L = 4, 8, 16) at the default camera, each with the skip (nearest-first bins with
+    bounds) and without (id-ordered bins), outputs held equal.  Per point:
+    the share spared (the kernel's own counts), the net time with the skip
+    (on / off - 1), and, from a build whose tests never fire
+    (OCC_NEVER_FIRES), the machinery's cost (never / off - 1) and what the
+    skips save ((never - on) / off).  The break-even is where net crosses
+    zero between the two measured points, adjacent in share, that bracket
+    it (a straight line through those two); it is returned.  The least-
+    squares line of net against share over all points is printed beside
+    it; where no two points bracket zero, its crossing is returned, an
+    extrapolation."""
+    from kanirenderer_tpu_torch.core.types import (default_camera,
+                                                   frame_state)
+    from kanirenderer_tpu_torch.models.procedural import layered_scene
+    from kanirenderer_tpu_torch.ops.binning import bin_tiles, depth_bound
+    dev = torch.device("cuda", 0)
+    cfg = flythrough.BENCH_CONFIG
+    W, H = cfg.width, cfg.height
+    scene = sponza_standin_scene(device=dev)
+    cam0 = flythrough.BENCH_CAM0
+    poses = [("bench pose", scene,
+              camera_state(cam0.position, cam0.yaw, cam0.pitch, dev))]
+    poses += [(f"layered {n}", layered_scene(layers=n, device=dev),
+               default_camera(device=dev)) for n in (4, 8, 16)]
+    calls = {}
+    for name, sc, cam in poses:
+        g = frame_geometry(sc, frame_state(sc, cam,
+                                           default_lights(device=dev)), cfg)
+        st = g.setup
+        on = bin_tiles(st.bbox, W, H, cfg.tile_w, cfg.tile_h,
+                       cfg.max_chunks_per_tile,
+                       occ_bound=depth_bound(st.setup, st.bbox, cfg.tile_w,
+                                             cfg.tile_h))
+        off = bin_tiles(st.bbox, W, H, cfg.tile_w, cfg.tile_h,
+                        cfg.max_chunks_per_tile)
+        calls[name] = [
+            lambda b, g=g, **kw: rc.rasterize_pixels(
+                g.records, g.setup.setup, g.setup.bbox, b, W, H, **kw),
+            on, off]
+    rows = {}
+    for name, (fn, on, off) in calls.items():
+        c_on = torch.zeros(len(rc.OCC_COUNTS), dtype=torch.int64,
+                           device=dev)
+        c_off = torch.zeros_like(c_on)
+        a, b = fn(on, counts=c_on), fn(off, counts=c_off)
+        equal = torch.equal(a.z, b.z) and torch.equal(a.tid, b.tid)
+        visits = dict(zip(rc.OCC_COUNTS, c_on.tolist()))["visits"]
+        share = 1 - visits / max(dict(zip(rc.OCC_COUNTS,
+                                          c_off.tolist()))["visits"], 1)
+        rows[name] = dict(share=share, equal=equal,
+                          on=device_ms(lambda: fn(on)),
+                          off=device_ms(lambda: fn(off)))
+    with edited_kernels(dict(EDITS)[OCC_NEVER_FIRES]):
+        for name, (fn, on, _) in calls.items():
+            rows[name]["never"] = device_ms(lambda: fn(on))
+    for name, r in rows.items():
+        r["net"] = r["on"] / r["off"] - 1
+        print(f"K2 {name}: spared {r['share']:.4f}, skip on {r['on']:.4f} "
+              f"ms, off {r['off']:.4f}, tests never firing "
+              f"{r['never']:.4f}; net {r['net']:+.4f}, machinery "
+              f"{r['never'] / r['off'] - 1:+.4f}, skips save "
+              f"{(r['never'] - r['on']) / r['off']:.4f}; outputs on = off "
+              f"{r['equal']}", flush=True)
+    pts = sorted((r["share"], r["net"]) for r in rows.values())
+    x = torch.tensor([p[0] for p in pts], dtype=torch.float64)
+    y = torch.tensor([p[1] for p in pts], dtype=torch.float64)
+    slope = ((x - x.mean()) * (y - y.mean())).sum() / (
+        (x - x.mean()) ** 2).sum()
+    at0 = y.mean() - slope * x.mean()
+    fit = float(-at0 / slope) if slope < 0 else float("inf")
+    even = next((x0 + y0 / (y0 - y1) * (x1 - x0)
+                 for (x0, y0), (x1, y1) in zip(pts, pts[1:])
+                 if y0 > 0 >= y1), fit)
+    print(f"break-even: least squares net = {float(at0):+.4f} "
+          f"{float(slope):+.4f} x share over {len(pts)} points (shares "
+          f"{pts[0][0]:.4f} to {pts[-1][0]:.4f}) crosses zero at "
+          f"{fit:.4f}; between the bracketing points at {even:.4f}: the "
+          f"skip pays from a share of {even:.4f}", flush=True)
+    return even
+
+
 def main(words=()) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -188,6 +315,9 @@ def main(words=()) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
+    if list(words) == ["break-even"]:
+        occ_break_even()
+        return
     dev = torch.device("cuda", 0)
     cfg = flythrough.BENCH_CONFIG
     wcfg = flythrough.MODE_CONFIGS["wireframe"]
@@ -249,25 +379,13 @@ def main(words=()) -> None:
             print(f"  registers/spill stores/spill loads: {ptxas_summary()}",
                   flush=True)
 
-    source = rc.CSRC
     measure("as built")
     measure("as built, again")
     for name, edits in EDITS:
         if words and not any(w in name for w in words):
             continue
-        with tempfile.TemporaryDirectory() as tmp:
-            copy = Path(tmp) / "csrc"
-            shutil.copytree(source, copy)
-            for fname, old, new in edits:
-                text = (copy / fname).read_text()
-                if text.count(old) != 1:
-                    raise RuntimeError(f"{name}: {old!r} is not in {fname} "
-                                       "exactly once")
-                (copy / fname).write_text(text.replace(old, new))
-            rc.CSRC, rc._lib = copy, None
-            rc.load_kernels()
+        with edited_kernels(edits):
             measure(name)
-    rc.CSRC, rc._lib = source, None
 
 
 if __name__ == "__main__":

@@ -8,7 +8,11 @@ depths across chunks (the lower triangle id must win), a raster that is no
 multiple of the tile, NaN planes, wireframe interiors (triangles that
 cover whole tiles, whole 8×4 patches and single pixels with no edge
 within the threshold), and infinite and float32-overflowing plane
-coefficients.  ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
+coefficients; for the occlusion skip, two layers of quads, the far one
+first in id order (``two_layer_case``), and steep slivers whose depth at a
+covered pixel centre lies below their lowest vertex depth, each behind an
+occluder that sits between the two (``bound_case``).
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
 kernels against their plain versions on them,
 ``tests/test_torch_raster.py`` and ``tests/test_torch_visibility.py`` the
 plain versions against the JAX package's brute-force rasters.
@@ -30,10 +34,11 @@ import torch
 
 from kanirenderer_tpu_torch.core.types import (CHUNK_SIZE, SUBBATCH,
                                                SUBS_PER_CHUNK)
-from kanirenderer_tpu_torch.ops.binning import ChunkBins, bin_tiles
+from kanirenderer_tpu_torch.ops.binning import (ChunkBins, bin_tiles,
+                                                depth_bound)
 from kanirenderer_tpu_torch.ops.interpolate import (FAT_LANES, LSUM0, PAR0,
                                                     REC0)
-from kanirenderer_tpu_torch.ops.vertex import NS
+from kanirenderer_tpu_torch.ops.vertex import NS, triangle_setup
 
 Tensor = torch.Tensor
 
@@ -239,12 +244,148 @@ def nonfinite_case(device, width: int = 48, height: int = 40) -> RasterCase:
                    bbox, width, height, 640, device)
 
 
+def _clip_of(xy, z, width: int, height: int) -> np.ndarray:
+    """(N, 4) clip rows (w = 1) of screen points ``xy`` at NDC depth z,
+    for ops/vertex.triangle_setup's viewport."""
+    xy = np.asarray(xy, np.float64)
+    return np.stack([xy[:, 0] / width * 2.0 - 1.0,
+                     1.0 - xy[:, 1] / height * 2.0,
+                     np.broadcast_to(z, len(xy)), np.ones(len(xy))],
+                    1).astype(np.float32)
+
+
+def _setup_rows(clip: np.ndarray, width: int, height: int):
+    """Setup rows, bboxes and vertex depth bounds (zmin) of consecutive
+    vertex triples, through ops/vertex.triangle_setup."""
+    T = clip.shape[0] // 3
+    st, _ = triangle_setup(torch.from_numpy(clip),
+                           torch.arange(3 * T).reshape(T, 3),
+                           torch.ones(T, dtype=torch.bool), width, height,
+                           False)
+    return st.setup.numpy(), st.bbox.numpy(), st.zmin.numpy()
+
+
+def two_layer_case(device, width: int = 128, height: int = 64, nx: int = 16,
+                   ny: int = 16) -> RasterCase:
+    """The counterpart of tests/test_binning_pallas.py:371-405
+    (``_two_layer_setup``): two screen-covering grids of nx × ny quads at
+    constant NDC depth, a far layer (z = 0.8) first in id order and a near
+    one (z = 0.2), so that every tile holds several chunks of each and
+    the far layer is hidden everywhere."""
+    verts, tris = [], []
+    for z in (0.8, 0.2):
+        gx, gy = np.meshgrid(np.linspace(0, width, nx + 1),
+                             np.linspace(0, height, ny + 1))
+        base = len(verts)
+        verts += list(_clip_of(np.stack([gx.ravel(), gy.ravel()], 1), z,
+                               width, height))
+        for j in range(ny):
+            for i in range(nx):
+                v0 = base + j * (nx + 1) + i
+                tris += [(v0, v0 + 1, v0 + nx + 1),
+                         (v0 + 1, v0 + nx + 2, v0 + nx + 1)]
+    clip = np.stack(verts)[np.asarray(tris).reshape(-1)]
+    setup, bbox, _ = _setup_rows(clip, width, height)
+    setup, bbox = _pad_rows(list(setup), list(bbox), width, height)
+    return _finish("two layers, the far one first", setup, bbox, width,
+                   height, 640, device)
+
+
+def steep_triangles(slots: int = 8, seed: int = 3):
+    """Steep slivers, one per 32 × 32 slot of a 128 × 64 raster, each with
+    a covered pixel centre where its depth plane (as the kernels evaluate
+    it) lies more than 2⁻²¹ below its lowest vertex depth (the vertex
+    bound ``TriangleSetup.zmin``, which the JAX binner quantises by 2⁻²²).
+    Drawn from ``seed`` until found; a vertex sits on a pixel centre.
+    Returns (setup rows (slots, 16), bboxes, zmin, pixel (slots, 2), depth
+    there)."""
+    rng = np.random.RandomState(seed)
+    width, height = 128, 64
+    X = np.arange(width, dtype=np.float32) + 0.5
+    Y = np.arange(height, dtype=np.float32) + 0.5
+    rows, boxes, zmins, pix, zs = [], [], [], [], []
+    while len(rows) < slots:
+        k = len(rows)
+        c = np.array([k % 4 * 32 + 12 + rng.randint(8),
+                      k // 4 * 32 + 12 + rng.randint(8)]) + 0.5
+        a, L, th = rng.uniform(0, 2 * np.pi), rng.uniform(3, 12),             rng.uniform(0.002, 0.05)
+        v = np.stack([c, c + L * np.array([np.cos(a), np.sin(a)]),
+                      c + L * np.array([np.cos(a + th), np.sin(a + th)])])
+        z0 = rng.uniform(0.1, 0.5)
+        z = np.array([z0, z0 + rng.uniform(0.2, 0.4),
+                      z0 + rng.uniform(0.2, 0.4)])
+        setup, bbox, zmin = _setup_rows(
+            np.concatenate([_clip_of(v[i:i + 1], z[i], width, height)
+                            for i in range(3)]), width, height)
+        t = setup[0]
+
+        def plane(k):   # (a·X + c) + b·Y in float32
+            return (t[k] * X[None, :] + t[k + 2]) + t[k + 1] * Y[:, None]
+
+        zz = plane(9)
+        cov = (plane(0) >= 0) & (plane(3) >= 0) & (plane(6) >= 0) \
+            & (zz >= 0) & (np.float32(1.0) - zz >= 0)
+        low = cov & (zz < zmin[0] - 2.0 ** -21)
+        if not low.any():
+            continue
+        py, px = np.argwhere(low)[0]
+        rows.append(t)
+        boxes.append(bbox[0])
+        zmins.append(zmin[0])
+        pix.append((px, py))
+        zs.append(zz[py, px])
+    return (np.stack(rows), np.stack(boxes), np.array(zmins, np.float32),
+            np.array(pix), np.array(zs, np.float32))
+
+
+def bound_case(device, height: int = 64) -> RasterCase:
+    """``steep_triangles`` in the second chunk, and in the first, over
+    each one's 32 × 32 slot, an occluder at a constant depth halfway
+    between the sliver's depth at its low pixel and its vertex bound: a
+    skip resting on the vertex bound would drop the sliver there, where it
+    is the nearest.  ``height``: the raster's (64, or 128 for a square
+    map; the triangles stay in the top 64 rows)."""
+    rows, boxes, zmin, pix, zs = steep_triangles()
+    occ_rows, occ_boxes = [], []
+    for k in range(len(rows)):
+        x0, y0 = k % 4 * 32, k // 4 * 32
+        d = float(np.float32((np.float64(zs[k]) + zmin[k]) / 2.0))
+        for v in ([(x0, y0), (x0 + 32, y0), (x0, y0 + 32)],
+                  [(x0 + 32, y0), (x0 + 32, y0 + 32), (x0, y0 + 32)]):
+            r, b = _triangle_row(v, d)
+            occ_rows.append(r)
+            occ_boxes.append(b)
+    setup, bbox = _pad_rows(occ_rows, occ_boxes, 128, height)
+    steep, steep_box = _pad_rows(list(rows), list(boxes), 128, height)
+    return _finish("steep slivers below their vertex bound, behind "
+                   "occluders", np.concatenate([setup, steep]),
+                   np.concatenate([bbox, steep_box]), 128, height, 640,
+                   device)
+
+
+def occlusion_case(case: RasterCase, cap: int = 640) -> RasterCase:
+    """The case binned for the occlusion skip: lists nearest first by the
+    triangles' ``depth_bound``, the bins carrying the chunks' bounds;
+    ``kept`` the triangles of the chunks the cap kept."""
+    bins = bin_tiles(case.bbox, case.width, case.height, TILE, TILE, cap,
+                     occ_bound=depth_bound(case.setup, case.bbox, TILE,
+                                           TILE))
+    kept_chunks = torch.zeros(case.setup.shape[0] // CHUNK_SIZE,
+                              dtype=torch.bool, device=case.setup.device)
+    kept_chunks[bins.chunk[bins.pair_tile >= 0].to(torch.int64)] = True
+    return case._replace(bins=bins,
+                         kept=kept_chunks.repeat_interleave(CHUNK_SIZE))
+
+
 def adversarial_cases(device, cap: int = 640, square: bool = False):
-    """The cases for K2, K2w and K3 (104×40, 32×32, 120×72, 48×40) or,
-    with ``square``, for K1 (104×104, 32×32, 120×120, 48×48).
-    ``cap`` sizes the capped tile: 640, the frame's cap, on the card; a
-    few chunks where the plain version runs on the CPU."""
+    """The cases for K2, K2w and K3 (104×40, 32×32, 120×72, 48×40, 128×64,
+    128×64) or, with ``square``, for K1 (104×104, 32×32, 120×120, 48×48,
+    128×128, 128×128).  ``cap`` sizes the capped tile:
+    640, the frame's cap, on the card; a few chunks where the plain
+    version runs on the CPU."""
     return [list_overflow_case(104, 104 if square else 40, device),
             chunk_cap_case(cap, device),
             wire_interior_case(device, height=120 if square else 72),
-            nonfinite_case(device, height=48 if square else 40)]
+            nonfinite_case(device, height=48 if square else 40),
+            two_layer_case(device, height=128 if square else 64),
+            bound_case(device, height=128 if square else 64)]

@@ -36,6 +36,22 @@ the reference kernel (raster_pallas.py:491-518); a NaN distance covers
 nothing (the minimum over the edges is ``torch.minimum``'s, as the
 reference's is ``jnp.minimum``'s).
 
+Occlusion skip (the Pallas kernels' O1): where the bins carry the
+chunks' depth bounds (``ChunkBins.bound``, from ``bin_tiles(occ_bound=)``,
+whose lists then come nearest first), the kernels skip the chunks and
+drop the hits that lie behind what their tile has resolved
+(csrc/raster_common.cuh); the outputs are those without the skip bit for
+bit.  ``occ_on`` resolves ``RenderConfig.occ_scope`` (and ``KANI_OCC``)
+to whether a raster takes it.  A wrapper given ``counts`` (a (4,) int64
+tensor on the card) launches the counting build of its kernel and adds
+to it the kernel's own count of chunks tested and skipped, warp visits
+of hits and hits dropped by the depth test (``OCC_COUNTS``; without the
+skip only the visits); ops/occ_replay replays the same rule.  Without
+``counts`` the build that counts nothing runs, and without bounds the
+build without the skip: both are separate instantiations.  The plain
+versions never skip: they are the oracle the skip is held against, and
+leave ``counts`` as it is.
+
 The kernels are built at first use with ``nvcc`` for sm_90a, one compiler
 process per source started together, into one shared library with a plain
 C interface under ``_build/`` (listed in .gitignore), named by a hash of
@@ -55,7 +71,8 @@ from pathlib import Path
 import torch
 
 from kanirenderer_tpu_torch.core.types import CHUNK_SIZE, RenderConfig
-from kanirenderer_tpu_torch.ops.binning import ChunkBins, bin_tiles
+from kanirenderer_tpu_torch.ops.binning import (ChunkBins, bin_tiles,
+                                                depth_bound)
 from kanirenderer_tpu_torch.ops.interpolate import (FAT_LANES, LSUM0, PAR0,
                                                     REC0, PixelBuffer)
 from kanirenderer_tpu_torch.ops.raster_xla import VisBuffer
@@ -78,6 +95,26 @@ launch_counts = {"rasterize_depth": 0, "rasterize_pixels": 0,
 
 _lib = None
 build_info: dict = {}
+
+# The kernels' occlusion counters, in the order of csrc/raster_common.cuh
+# OccCount.
+OCC_COUNTS = ("chunks_tested", "chunks_skipped", "visits", "hits_dropped")
+
+
+def occ_on(scope: str, depth_only: bool) -> bool:
+    """Whether a raster takes the occlusion skip under ``scope``
+    (RenderConfig.occ_scope; counterpart of ``_occ_on``,
+    kanirenderer_tpu/ops/raster_pallas.py:702-726): "env" defers to
+    ``KANI_OCC`` (default "shadow"); "auto" unresolved (the caller skipped
+    the gate, api.run) is "shadow"; "shadow" the depth-only rasters (K1),
+    "1" every raster, "0" none."""
+    mode = os.environ.get("KANI_OCC", "shadow") if scope == "env" else scope
+    if mode == "auto":
+        mode = "shadow"
+    if mode not in ("0", "shadow", "1"):
+        raise ValueError(f"occlusion scope {mode!r}: not 0, shadow, 1 or "
+                         "auto")
+    return mode == "1" or (mode == "shadow" and depth_only)
 
 
 def reset_launch_counts() -> None:
@@ -144,12 +181,13 @@ def load_kernels() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build()))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.kani_rasterize_depth.argtypes = \
-            [ptr] * 4 + [i32, ptr] + [i32] * 7 + [ptr]
-        lib.kani_rasterize_pixels.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
+            [ptr] * 4 + [i32, ptr] + [i32] * 7 + [ptr] * 3
+        lib.kani_rasterize_pixels.argtypes = \
+            [ptr] * 9 + [i32] * 9 + [ptr] * 3
         lib.kani_rasterize_pixels_wireframe.argtypes = \
-            [ptr] * 9 + [i32] * 9 + [f32, ptr]
+            [ptr] * 9 + [i32] * 9 + [f32] + [ptr] * 3
         lib.kani_rasterize_visibility.argtypes = \
-            [ptr] * 8 + [i32] * 7 + [f32, ptr]
+            [ptr] * 8 + [i32] * 7 + [f32] + [ptr] * 3
         for fn in (lib.kani_rasterize_depth, lib.kani_rasterize_pixels,
                    lib.kani_rasterize_pixels_wireframe,
                    lib.kani_rasterize_visibility):
@@ -197,6 +235,31 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _occ_args(bins: ChunkBins, blocks: int, counts: Tensor | None):
+    """(bound pointer, counts pointer, per-block scratch or None) for a
+    launch of ``blocks`` blocks; null pointers where there is no bound or
+    no ``counts``."""
+    bound = 0
+    if bins.bound is not None:
+        C = bins.bound.shape[0]
+        _check(bins.bound, "bins.bound", (C,), torch.float32,
+               bins.chunk.device)
+        bound = bins.bound.data_ptr()
+    if counts is None:
+        return bound, 0, None
+    _check(counts, "counts", (len(OCC_COUNTS),), torch.int64,
+           bins.chunk.device)
+    scratch = torch.empty((max(blocks, 1), len(OCC_COUNTS)),
+                          dtype=torch.int32, device=counts.device)
+    return bound, scratch.data_ptr(), scratch
+
+
+def _add_counts(counts: Tensor | None, scratch: Tensor | None,
+                blocks: int) -> None:
+    if counts is not None and blocks > 0:
+        counts += scratch.sum(0, dtype=torch.int64)
+
+
 def band_entries(bins: ChunkBins, bands) -> list:
     """For each (y0, band_h) of ``bands``, [e0, e1): the run of bin
     entries of the tile rows that meet rows [y0, y0 + band_h).  Entries
@@ -215,13 +278,15 @@ def band_entries(bins: ChunkBins, bands) -> list:
 
 def rasterize_depth(setup: Tensor, bbox: Tensor, bins: ChunkBins, dim: int,
                     y0: int = 0, band_h: int | None = None,
-                    entries: tuple | None = None) -> Tensor:
+                    entries: tuple | None = None,
+                    counts: Tensor | None = None) -> Tensor:
     """K1: (dim, dim) depth map, the minimum covered depth, 1.0 where
     nothing covers.  ``setup``/``bbox``: (T, 16)/(T, 4) f32 from
     ops/vertex.TriangleSetup.  With ``band_h``: map rows [y0, y0 + band_h)
     only, a (band_h, dim) band of the same map, from the full map's
     ``bins``; ``entries``: the band's ``band_entries``, where the caller
-    has them (without, the wrapper reads them back)."""
+    has them (without, the wrapper reads them back).  The occlusion skip
+    and ``counts``: module docstring."""
     band_h = dim if band_h is None else band_h
     if setup.device.type == "cpu":
         return rasterize_depth_plain(setup, bbox, bins, dim, y0, band_h)
@@ -236,14 +301,18 @@ def rasterize_depth(setup: Tensor, bbox: Tensor, bins: ChunkBins, dim: int,
         entries = (0, bins.chunk.shape[0]) if whole \
             else band_entries(bins, [(y0, band_h)])[0]
     e0, e1 = entries
+    blocks = -(-(e1 - e0) // 8)       # csrc/raster_depth.cu kSlice
+    bound, cptr, scratch = _occ_args(bins, blocks, counts)
     err = lib.kani_rasterize_depth(
         setup.data_ptr(), bbox.data_ptr(), bins.pair_tile[e0:].data_ptr(),
         bins.chunk[e0:].data_ptr(), e1 - e0, out.data_ptr(), dim, dim, y0,
-        band_h, bins.tiles_x, bins.tile_w, bins.tile_h, _stream())
+        band_h, bins.tiles_x, bins.tile_w, bins.tile_h, bound, cptr,
+        _stream())
     name = "rasterize_depth" if whole else "rasterize_depth_band"
     launch_counts[name] += 1
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _add_counts(counts, scratch, blocks)
     return out
 
 
@@ -251,7 +320,8 @@ def rasterize_pixels(records: Tensor, setup: Tensor, bbox: Tensor,
                      bins: ChunkBins, width: int, height: int,
                      wireframe: bool = False, wire_thresh: float = 0.7,
                      y0: int = 0, y_stride: int = 1,
-                     band_h: int | None = None) -> PixelBuffer:
+                     band_h: int | None = None,
+                     counts: Tensor | None = None) -> PixelBuffer:
     """K2 (K2w with ``wireframe``): visibility + interpolation →
     PixelBuffer (with ``tid``).  ``records``: (T, 76) f32 from
     ops/interpolate.build_tri_records_corners; ``setup``/``bbox``: the
@@ -259,7 +329,7 @@ def rasterize_pixels(records: Tensor, setup: Tensor, bbox: Tensor,
     visibility phase reads its planes from ``setup``, whose lanes 0:12
     equal the records').  With ``band_h``: the band_h rows of a row band
     of the width × height frame (module docstring), from the band's
-    ``bins``."""
+    ``bins``.  The occlusion skip and ``counts``: module docstring."""
     band_h = height if band_h is None else band_h
     if records.device.type == "cpu":
         return rasterize_pixels_plain(records, setup, bbox, bins, width,
@@ -275,30 +345,35 @@ def rasterize_pixels(records: Tensor, setup: Tensor, bbox: Tensor,
     z = torch.empty((band_h, width), dtype=torch.float32, device=dev)
     vary = torch.empty((USED, band_h, width), dtype=torch.float32, device=dev)
     ints = torch.empty((6, band_h, width), dtype=torch.int32, device=dev)
+    blocks = bins.tiles_x * bins.tiles_y
+    bound, cptr, scratch = _occ_args(bins, blocks, counts)
     args = [*(t.data_ptr() for t in (records, setup, bbox, bins.start,
                                       bins.count, bins.chunk, z, vary, ints)),
-            width, height, band_h, y0, y_stride, bins.tiles_x,
-            bins.tiles_x * bins.tiles_y, bins.tile_w, bins.tile_h]
+            width, height, band_h, y0, y_stride, bins.tiles_x, blocks,
+            bins.tile_w, bins.tile_h]
     if wireframe:
         name = "rasterize_pixels_wireframe"
-        err = lib.kani_rasterize_pixels_wireframe(*args, wire_thresh,
-                                                  _stream())
+        err = lib.kani_rasterize_pixels_wireframe(*args, wire_thresh, bound,
+                                                  cptr, _stream())
     else:
         name = "rasterize_pixels"
-        err = lib.kani_rasterize_pixels(*args, _stream())
+        err = lib.kani_rasterize_pixels(*args, bound, cptr, _stream())
     if (y0, y_stride, band_h) != (0, 1, height):
         name += "_band"
     launch_counts[name] += 1
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _add_counts(counts, scratch, blocks)
     return _pixel_buffer(z, vary, ints, bins)
 
 
 def rasterize(setup: Tensor, bbox: Tensor, bins: ChunkBins, width: int,
               height: int, wireframe: bool = False,
-              wire_thresh: float = 0.7) -> VisBuffer:
+              wire_thresh: float = 0.7,
+              counts: Tensor | None = None) -> VisBuffer:
     """K3: visibility buffer (triangle id, depth, barycentrics) of the
-    (T, 16) setup rows from ops/vertex.TriangleSetup."""
+    (T, 16) setup rows from ops/vertex.TriangleSetup.  The occlusion skip
+    and ``counts``: module docstring."""
     if setup.device.type == "cpu":
         return rasterize_plain(setup, bbox, bins, width, height, wireframe,
                                wire_thresh)
@@ -308,25 +383,31 @@ def rasterize(setup: Tensor, bbox: Tensor, bins: ChunkBins, width: int,
     tri = torch.empty((height, width), dtype=torch.int32, device=dev)
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     bary = torch.empty((height, width, 2), dtype=torch.float32, device=dev)
+    blocks = bins.tiles_x * bins.tiles_y
+    bound, cptr, scratch = _occ_args(bins, blocks, counts)
     err = lib.kani_rasterize_visibility(
         *(t.data_ptr() for t in (setup, bbox, bins.start, bins.count,
                                  bins.chunk, tri, z, bary)),
-        width, height, bins.tiles_x, bins.tiles_x * bins.tiles_y,
-        bins.tile_w, bins.tile_h, int(wireframe), wire_thresh, _stream())
+        width, height, bins.tiles_x, blocks, bins.tile_w, bins.tile_h,
+        int(wireframe), wire_thresh, bound, cptr, _stream())
     launch_counts["rasterize_visibility"] += 1
     if err:
         raise RuntimeError(
             f"rasterize_visibility launch failed: CUDA error {err}")
+    _add_counts(counts, scratch, blocks)
     return VisBuffer(tri=tri, z=z, bary=bary)
 
 
 def rasterize_config(st: TriangleSetup, config: RenderConfig,
                      wireframe: bool = False) -> VisBuffer:
     """Bin ``st`` on the main view's tile grid and rasterize it with K3,
-    as ``raster_pallas.rasterize(st, config, wireframe)``."""
+    as ``raster_pallas.rasterize(st, config, wireframe)``, with the
+    occlusion skip where ``config.occ_scope`` turns it on."""
     cfg = config
+    bound = depth_bound(st.setup, st.bbox, cfg.tile_w, cfg.tile_h) \
+        if occ_on(cfg.occ_scope, depth_only=False) else None
     bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w, cfg.tile_h,
-                     cfg.max_chunks_per_tile)
+                     cfg.max_chunks_per_tile, occ_bound=bound)
     return rasterize(st.setup, st.bbox, bins, cfg.width, cfg.height,
                      wireframe, cfg.wire_thresh_px)
 

@@ -39,6 +39,12 @@ computes the matrices itself and passes them as ``uniforms``.  That read
 and the binning calls are the frame's own device-to-host synchronisations.
 ``linearize_depth`` (depth picking) lives with the overlays that share it.
 
+Occlusion (``cfg.occ_scope``, ops/raster_cuda.occ_on): where a raster
+takes the skip, its setup's ``depth_bound`` goes to the binning, whose
+lists then come nearest first and carry the chunks' bounds to the kernel
+(the light-space grid under the default scope "shadow", the main grid
+too under "1"); every scope renders the same pixels.
+
 Row bands (``render_band``; parallel/mesh.py drives it): a band is
 ``band_h`` screen rows from ``y0``, contiguous or, with ``band_stride`` n,
 tile rows k, k + n, … (y0 = k·tile_h).  The body is split into stage
@@ -71,7 +77,7 @@ from kanirenderer_tpu_torch.core.types import (DebugTexture, FrameState,
                                                Scene)
 from kanirenderer_tpu_torch.ops import raster_cuda
 from kanirenderer_tpu_torch.ops.binning import (ChunkBins, bin_tiles,
-                                                interleave_bins)
+                                                depth_bound, interleave_bins)
 from kanirenderer_tpu_torch.ops.interpolate import (PixelBuffer,
                                                     build_tri_records,
                                                     build_tri_records_corners)
@@ -121,6 +127,8 @@ class Geometry(NamedTuple):
     setup: TriangleSetup
     records: Tensor      # (T, 76) triangle records
     bins: ChunkBins | None  # the main grid's; None where no stage reads them
+    occ_bound: Tensor | None = None  # (T,) the main grid's depth_bound
+    #   where its rasters take the occlusion skip
 
 
 def frame_uniforms_host(position, yaw, pitch, sun_direction, sun_distance,
@@ -188,14 +196,25 @@ def _setup(scene: Scene, clip: Tensor, width, height, cull_backfaces: bool,
                           height, cull_backfaces, bias_constant, bias_slope)
 
 
+def _occ_bound(st: TriangleSetup, cfg: RenderConfig, tile_h: int,
+               depth_only: bool) -> Tensor | None:
+    """The setup's depth_bound where the scope turns the skip on for this
+    raster, else None."""
+    if not raster_cuda.occ_on(cfg.occ_scope, depth_only):
+        return None
+    return depth_bound(st.setup, st.bbox, cfg.tile_w, tile_h)
+
+
 def _shadow_geometry(scene: Scene, light_clip: Tensor,
                      cfg: RenderConfig) -> ShadowGeometry:
     D = cfg.shadow_dim
     st, _ = _setup(scene, light_clip, D, D, False, cfg.shadow_bias_constant,
                    cfg.shadow_bias_slope)
+    bound = _occ_bound(st, cfg, cfg.shadow_tile_h, depth_only=True)
     return ShadowGeometry(st, bin_tiles(st.bbox, D, D, cfg.tile_w,
                                         cfg.shadow_tile_h,
-                                        cfg.shadow_chunks_per_tile))
+                                        cfg.shadow_chunks_per_tile,
+                                        occ_bound=bound))
 
 
 def render_shadow_geometry(scene: Scene, state: FrameState,
@@ -255,11 +274,13 @@ def frame_geometry(scene: Scene, state: FrameState, cfg: RenderConfig,
             scene.tri_idx, scene.tri_mat, vout.varyings, scene.mat_blk_base,
             scene.mat_blk_w, scene.mat_tex_size, setup=st.setup,
             extra=scene.tri_extra)
+    bound = _occ_bound(st, cfg, cfg.tile_h, depth_only=False)
     bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w, cfg.tile_h,
-                     cfg.max_chunks_per_tile) if main_bins else None
+                     cfg.max_chunks_per_tile, occ_bound=bound) \
+        if main_bins else None
     return Geometry(light_vp=light_vp, vout=vout, shadow_setup=sh.setup,
                     shadow_bins=sh.bins, setup=st, records=records,
-                    bins=bins)
+                    bins=bins, occ_bound=bound)
 
 
 def _shade(scene: Scene, state: FrameState, cfg: RenderConfig,
@@ -341,7 +362,7 @@ def band_bins(g: Geometry, cfg: RenderConfig, y0: int, band_h: int,
     if band_stride > 1:
         return interleave_bins(g.bins, y0 // cfg.tile_h, band_stride)
     return bin_tiles(g.setup.bbox, cfg.width, band_h, cfg.tile_w, cfg.tile_h,
-                     cfg.max_chunks_per_tile, y0=y0)
+                     cfg.max_chunks_per_tile, y0=y0, occ_bound=g.occ_bound)
 
 
 def band_pixels(g: Geometry, cfg: RenderConfig, bins: ChunkBins, y0: int,

@@ -239,7 +239,7 @@ def test_port_and_smoke_script_import_no_jax():
         "need = ['api', 'cli', '__main__', 'io.obj', 'io.image', 'io.jpeg',\n"
         "        'runtime.loop', 'runtime.display', 'runtime.input',\n"
         "        'runtime.frametime', 'models.animation', 'utils.log',\n"
-        "        'parallel', 'parallel.mesh']\n"
+        "        'parallel', 'parallel.mesh', 'ops.occ_replay']\n"
         "missing = [n for n in need if p.__name__ + '.' + n not in names]\n"
         "print(len(bad), missing, 'triton' in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

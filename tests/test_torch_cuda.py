@@ -9,7 +9,9 @@ JAX, so run them without the suite's conftest (which imports JAX):
 Tolerances: kernel and plain version evaluate every plane in the same
 order without fused multiply-adds, so depth maps, coverage, winners,
 barycentrics and interpolated outputs must be bit-equal (``torch.equal``)
-for every kernel.  The loop's steady-state frame (cached PCF table) must
+for every kernel, with the occlusion skip on and off.  The kernels' own
+occlusion counts equal ops/occ_replay's for K2, K2w and K3; K1's blocks
+also read the map other blocks lower, so it skips at least as much.  The loop's steady-state frame (cached PCF table) must
 equal ``render_frame`` with a fresh map, bit for bit.
 """
 
@@ -21,9 +23,9 @@ from kanirenderer_tpu_torch.core.types import (CHUNK_SIZE, RenderConfig,
                                                RenderMode, camera_state,
                                                default_lights, frame_state)
 from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
-from kanirenderer_tpu_torch.ops import raster_cases
+from kanirenderer_tpu_torch.ops import occ_replay, raster_cases
 from kanirenderer_tpu_torch.ops import raster_cuda as rc
-from kanirenderer_tpu_torch.ops.binning import bin_tiles
+from kanirenderer_tpu_torch.ops.binning import bin_tiles, depth_bound
 from kanirenderer_tpu_torch.ops.interpolate import FAT_LANES
 from kanirenderer_tpu_torch.ops.vertex import triangle_setup_corners
 from kanirenderer_tpu_torch.passes.frame import frame_geometry
@@ -218,6 +220,100 @@ def test_kernels_match_plain_on_adversarial_cases(geometry, which):
     torch.cuda.synchronize()
     assert (k1 < 1.0).any() and (k1 == 1.0).any()
     assert torch.equal(k1, p1)
+
+
+def _occ_counts(fn):
+    """The kernel's occlusion counts of one call ``fn(counts=...)``."""
+    counts = torch.zeros(len(rc.OCC_COUNTS), dtype=torch.int64,
+                         device="cuda")
+    out = fn(counts=counts)
+    torch.cuda.synchronize()
+    return out, dict(zip(rc.OCC_COUNTS, counts.tolist()))
+
+
+def _check_skip(setup, bbox, bins, width, height, records=None,
+                depth=False):
+    """K1 (``depth``) or K2, K2w and K3 with the skip (``bins.bound``) and
+    without against the plain versions, bit-equal, and their counts
+    against the replay's; returns the share of K2's warp visits spared."""
+    off_bins = bins._replace(bound=None)
+    if depth:
+        on, c_on = _occ_counts(lambda counts: rc.rasterize_depth(
+            setup, bbox, bins, width, counts=counts))
+        off = rc.rasterize_depth(setup, bbox, off_bins, width)
+        plain = rc.rasterize_depth_plain(setup, bbox, bins, width)
+        torch.cuda.synchronize()
+        assert torch.equal(on, off) and torch.equal(on, plain)
+        r = occ_replay.replay(setup, bbox, bins, width, width,
+                              depth_only=True)
+        assert torch.equal(r.z, plain)
+        assert c_on["chunks_tested"] == r.counts["chunks_tested"]
+        assert c_on["chunks_skipped"] >= r.counts["chunks_skipped"]
+        assert c_on["visits"] <= r.counts["visits"]
+        return None
+    if records is None:
+        records = torch.zeros((setup.shape[0], FAT_LANES), device="cuda")
+        records[:, :16] = setup
+    share = None
+    for wire, thresh in ((False, 0.7), (True, raster_cases.WIRE_THRESH)):
+        args = (setup, bbox, bins, width, height, wire, thresh)
+        off_args = (setup, bbox, off_bins, width, height, wire, thresh)
+        k, c_on = _occ_counts(lambda counts: rc.rasterize_pixels(
+            records, *args, counts=counts))
+        k_off, c_off = _occ_counts(lambda counts: rc.rasterize_pixels(
+            records, *off_args, counts=counts))
+        p = rc.rasterize_pixels_plain(records, *args)
+        torch.cuda.synchronize()
+        _assert_pixels_equal(k, p)
+        _assert_pixels_equal(k_off, p)
+        v, c3 = _occ_counts(lambda counts: rc.rasterize(*args,
+                                                        counts=counts))
+        v_off = rc.rasterize(*off_args)
+        vp = rc.rasterize_plain(*args)
+        for f, a, b, c in zip(vp._fields, v, v_off, vp):
+            assert torch.equal(a, c) and torch.equal(b, c), f
+        r = occ_replay.replay(setup, bbox, bins, width, height,
+                              thresh if wire else None, raster=False)
+        assert c_on == c3 == r.counts, (c_on, c3, r.counts)
+        assert c_off["visits"] >= c_on["visits"]
+        if not wire:
+            share = occ_replay.skipped_share(c_on, c_off)
+    return share
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3, 4, 5])
+def test_occlusion_skip_on_adversarial_cases(geometry, which):
+    """Every case of ops/raster_cases.py with the skip, binned nearest
+    first and with its own id-ordered bins: outputs bit-equal to the skip
+    off and to the plain versions, counts equal to the replay's; the
+    two-layer case spares over 30% of K2's evaluations."""
+    dev = geometry[0].records.device
+    case = raster_cases.adversarial_cases(dev)[which]
+    occ = raster_cases.occlusion_case(case)
+    shares = [_check_skip(c.setup, c.bbox, bins, c.width, c.height,
+                          c.records)
+              for c, bins in ((occ, occ.bins), (case, case.bins._replace(
+                  bound=occ.bins.bound)))]
+    if which == 4:
+        assert shares[0] > 0.3, shares
+    sq = raster_cases.occlusion_case(
+        raster_cases.adversarial_cases(dev, square=True)[which])
+    _check_skip(sq.setup, sq.bbox, sq.bins, sq.width, sq.width, depth=True)
+
+
+def test_occlusion_skip_on_the_frame_grids(geometry):
+    """The bench-like fixture with scope "1": K1 on the shadow grid, K2,
+    K2w and K3 on the main grid, skip on against off and plain."""
+    g, cfg = geometry
+    st, sh = g.setup, g.shadow_setup
+    assert g.shadow_bins.bound is not None     # the default scope
+    _check_skip(sh.setup, sh.bbox, g.shadow_bins, cfg.shadow_dim,
+                cfg.shadow_dim, depth=True)
+    bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w, cfg.tile_h,
+                     cfg.max_chunks_per_tile,
+                     occ_bound=depth_bound(st.setup, st.bbox, cfg.tile_w,
+                                           cfg.tile_h))
+    _check_skip(st.setup, st.bbox, bins, cfg.width, cfg.height, g.records)
 
 
 @pytest.mark.parametrize("n,interleave", [(8, False), (5, True)])
