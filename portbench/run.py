@@ -1,0 +1,497 @@
+"""The benchmark of kanirenderer_tpu_torch: one cell of BENCHMARK.json, one
+process, one result line.
+
+    python -m portbench.run --workload <cell> --seed <n> --seconds <s> \\
+        --trace <0|1>
+
+A cell is a configuration (``configs/<name>.json``: the scene and the
+surface) under a traffic mix (``traffic/<name>.json``: the mode and the
+fly-through's parameters).  The run:
+
+1. writes the configuration's scene as OBJ + MTL + PNG files once per
+   checkout (``scenefiles.py``) and loads them with the program's
+   ``api.load_model_or_default``, checking the triangle and material
+   counts (the loader falls back to a cube where a load fails);
+2. drives the program's interactive loop, ``runtime.loop.run_loop``, with
+   the mix's events (``traffic.py``; F1 in the first frame leaves the
+   loop's 60 Hz cap), a fixed 1/60 s controller step and a sink that keeps
+   a copy of a few presented frames, drawn from the seed;
+3. warms up for the mix's ``warmup_frames``, synchronises, and measures
+   every frame of ``--seconds`` seconds back to back (closed loop), then
+   synchronises again;
+4. with ``--trace 1`` profiles the first ``TRACE_SECONDS`` of the window
+   and reads the per-layer metrics (``metrics/<name>.py``) from the
+   trace;
+5. frees the program's scene and renders the sampled frames' poses with
+   the plain reference (``reference/``), which recomputes the poses from
+   the events and the scene from the generated arrays and the files, and
+   compares (``compare.py``).
+
+The last line of standard output is the result's JSON; the compared
+numbers and their limits are the last lines of standard error.
+"""
+
+from __future__ import annotations
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import gc  # noqa: E402
+import importlib.util  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from portbench import (compare, roofline, scenefiles, stats,  # noqa: E402
+                       traffic)
+from portbench import trace as tr  # noqa: E402
+
+HERE = Path(__file__).resolve().parent
+BENCHMARK = HERE.parent / "BENCHMARK.json"
+# Top-level module names that may not be loaded in a run.
+BANNED = ("jax", "jaxlib", "flax", "kanirenderer_tpu")
+# The traced part of a --trace 1 window, seconds: enough frames for the
+# per-frame counts, few enough events for the trace to be read in time.
+TRACE_SECONDS = 3.0
+# How many traced poses the roofline's work is counted on.
+WORK_POSES = 2
+
+
+def log(*parts) -> None:
+    print(*parts, file=sys.stderr, flush=True)
+
+
+def load_json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def load_metric(directory: Path, name: str):
+    """The per-layer metric reader ``<directory>/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(
+        "portbench_metric_" + name.replace(".", "_").replace("-", "_"),
+        directory / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def banned_modules() -> list:
+    return sorted({m.split(".")[0] for m in sys.modules} & set(BANNED))
+
+
+def sample_offsets(seed: int, seconds: float, n: int) -> list:
+    """Times into the window, drawn from the seed, after which the next
+    presented frame is kept for the comparison."""
+    rng = np.random.default_rng([seed % 2**64, 1])
+    return sorted(rng.uniform(0.05, 0.95, n) * seconds)
+
+
+class SampleSink:
+    """A display sink that keeps a copy of the first frame presented after
+    each of ``offsets`` seconds into the window, with its frame number
+    (the loop presents each frame one iteration late, in order)."""
+
+    def __init__(self, offsets: list, first_window_frame: int):
+        self.offsets = offsets
+        self.first = first_window_frame
+        self.t0 = None
+        self.presented = 0
+        self.samples = []
+
+    def present(self, img):
+        g = self.presented
+        self.presented += 1
+        k = len(self.samples)
+        if (self.t0 is not None and g >= self.first and k < len(self.offsets)
+                and time.perf_counter() - self.t0 >= self.offsets[k]):
+            self.samples.append((g, np.array(img, copy=True)))
+
+    def close(self):
+        pass
+
+
+def watch_overflow(loop_module):
+    """(the raster overflow of every presented frame, in order, as the
+    loop's presenter hands it back; a function that undoes the watch).
+    Raises where the loop has no presenter to watch: ``failed`` counts
+    the overflowed frames, and a run that cannot see them gives no
+    result."""
+    presenter = getattr(loop_module, "_Presenter", None)
+    collect = getattr(presenter, "collect", None)
+    if collect is None:
+        raise RuntimeError("runtime.loop has no _Presenter.collect: the "
+                           "presented frames' raster overflow cannot be "
+                           "read")
+    seen = []
+
+    def counted(self):
+        ov = collect(self)
+        if ov is not None:
+            seen.append(ov)
+        return ov
+
+    presenter.collect = counted
+
+    def undo():
+        presenter.collect = collect
+
+    return seen, undo
+
+
+class Window:
+    """The run's event stream around the mix's: warm-up frames, then the
+    measured window with a host-clock stamp as each frame is asked for,
+    then quit; with a profiler, the traced part between its markers."""
+
+    def __init__(self, mix, seed, seconds, sink, cuda, profiler=None):
+        self.mix, self.seed, self.seconds = mix, seed, seconds
+        self.sink, self.cuda, self.prof = sink, cuda, profiler
+        self.warmup = mix["warmup_frames"]
+        self.t0 = None
+        self.stamps = []
+        self.traced_frames = None
+        self.traced_host_s = None
+
+    def _sync(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def _mark(self, name):
+        with torch.profiler.record_function(name):
+            pass
+
+    def _stop_trace(self, frames):
+        start = time.perf_counter()
+        self._mark(tr.END)
+        self._sync()
+        self._mark(tr.DRAINED)
+        self.prof.stop()
+        self.traced_frames = frames
+        self.traced_host_s = start - self.t0
+        # The window's clock, and the sink's, leave out the profiler's
+        # stop, so that a traced run samples and runs as long as another.
+        paused = time.perf_counter() - start
+        self.t0 += paused
+        self.sink.t0 += paused
+
+    def __iter__(self):
+        from kanirenderer_tpu_torch.runtime.loop import Events
+        for i, ev in enumerate(traffic.events(self.mix, self.seed)):
+            if i == self.warmup:
+                self._sync()
+                if self.prof is not None:
+                    self.prof.start()
+                    self._mark(tr.BEGIN)
+                self.t0 = self.sink.t0 = time.perf_counter()
+                log(f"warm-up done at {self.t0 - T_START:.4f} s")
+            if i >= self.warmup:
+                now = time.perf_counter()
+                self.stamps.append(now)
+                if self.prof is not None and self.traced_frames is None \
+                        and now - self.t0 >= min(TRACE_SECONDS,
+                                                 self.seconds):
+                    self._stop_trace(i - self.warmup)
+                if now - self.t0 >= self.seconds:
+                    yield Events(quit=True)
+                    return
+            yield Events(held=ev.held, pressed=ev.pressed,
+                         mouse_dx=ev.mouse_dx, mouse_dy=ev.mouse_dy,
+                         mouse_look=ev.mouse_look)
+
+
+class MetricContext:
+    """What a per-layer metric reader gets: the traced window and the
+    reference's count of a kernel's work on traced poses."""
+
+    def __init__(self, trace, ref_scene, cfg, mix, seed, first_frame):
+        self.trace = trace
+        self._scene, self._cfg = ref_scene, cfg
+        self._mix, self._seed, self._first = mix, seed, first_frame
+        self._work = {}
+
+    def work(self, kind: str) -> tuple:
+        """(bytes, operations) of a K1 ("depth") or a K2 or K2w ("pixels",
+        by the cell's mode) launch, the mean over ``WORK_POSES`` traced
+        poses."""
+        if kind not in self._work:
+            self._work[kind] = _work(self._scene, self._cfg, self._mix,
+                                     self._seed, self._first,
+                                     max(self.trace.frames, 1), kind)
+        return self._work[kind]
+
+
+@torch.no_grad()
+def _work(scene, cfg, mix, seed, first, frames, kind):
+    from portbench.reference import frame as rf
+    from portbench.reference.binning import bin_tiles
+    from portbench.reference.interpolate import build_tri_records_corners
+    from portbench.reference.raster import rasterize_pixels_plain
+    from portbench.reference.types import RenderMode
+
+    gs = sorted({first + k * frames // WORK_POSES
+                 for k in range(WORK_POSES)})
+    all_poses = traffic.poses(mix, seed, gs[-1] + 1)
+    counts = []
+    for g in gs:
+        _, _, vout, st, planes = rf.camera_geometry(scene, all_poses[g], cfg)
+        if kind == "depth":
+            counts.append(roofline.depth_work(
+                rf.shadow_setup(scene, vout, cfg).bbox, cfg.shadow_dim))
+            continue
+        records = build_tri_records_corners(vout.varyings, planes,
+                                            scene.tri_extra)
+        bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w,
+                         cfg.tile_h, cfg.max_chunks_per_tile)
+        pix = rasterize_pixels_plain(records, st.setup, st.bbox, bins,
+                                     cfg.width, cfg.height,
+                                     wireframe=cfg.mode
+                                     == RenderMode.WIREFRAME,
+                                     wire_thresh=cfg.wire_thresh_px)
+        counts.append(roofline.pixel_work(st.bbox, pix.tid, cfg.width,
+                                          cfg.height))
+    return (sum(c[0] for c in counts) / len(counts),
+            sum(c[1] for c in counts) / len(counts))
+
+
+def end_to_end(window: Window, t_end: float, frames: int) -> dict:
+    return {
+        "frame_ms": stats.frame_ms(window.t0, t_end, frames),
+        "frame_p95_ms": stats.percentile(
+            stats.intervals_ms(window.stamps), 95.0),
+        "setup_s": window.t0 - T_START,
+    }
+
+
+def render_config(config: dict, mix: dict):
+    from kanirenderer_tpu_torch.core.types import RenderConfig, RenderMode
+    return RenderConfig(width=config["width"], height=config["height"],
+                        shadow_dim=config["shadow_map"],
+                        mode=RenderMode[mix["mode"]],
+                        cache_shadow_map=mix["cache_shadow_map"])
+
+
+def reference_config(config: dict, mix: dict):
+    from portbench.reference.types import RenderConfig, RenderMode
+    return RenderConfig(width=config["width"], height=config["height"],
+                        shadow_dim=config["shadow_map"],
+                        mode=RenderMode[mix["mode"]],
+                        cache_shadow_map=mix["cache_shadow_map"],
+                        output_u8=True)
+
+
+def reference_scene(config: dict, directory: Path, device):
+    from portbench.reference.scene import pack_scene
+    return pack_scene(*scenefiles.reference_inputs(config, directory),
+                      device)
+
+
+def check_samples(ref_scene, rcfg, mix, seed, samples) -> list:
+    """The compared numbers of every sampled (frame number, u8 surface)
+    against the reference's frame of the same pose."""
+    from portbench.reference.frame import render_frame
+    if not samples:
+        return []
+    poses = traffic.poses(mix, seed, max(g for g, _ in samples) + 1)
+    return [compare.frame_numbers(img, render_frame(ref_scene, poses[g],
+                                                    rcfg))
+            for g, img in samples]
+
+
+def load_program_scene(config: dict, directory: Path, device: str):
+    """The program's scene and builder, loaded from the configuration's
+    files through ``api.load_model_or_default``; raises unless the
+    loaded scene has the configuration's triangles and materials."""
+    from kanirenderer_tpu_torch import api
+    scene, builder = api.load_model_or_default(
+        str(directory / "scene.obj"), "opengl", device=device)
+    tris = int(scene.tri_valid.sum())
+    mats = int(scene.mat_blk_base.shape[0])
+    log("load_seconds " + " ".join(
+        f"{k}={v:.4f}" for k, v in builder.load_seconds.items())
+        + f" triangles={tris} materials={mats}")
+    want = config["expect"]
+    if (tris, mats) != (want["triangles"], want["materials"]):
+        raise RuntimeError(
+            f"the loaded scene has {tris} triangles and {mats} materials, "
+            f"not {want['triangles']} and {want['materials']}: the load "
+            "fell back or the files are not the configuration's")
+    return scene, builder
+
+
+def drive(scene, builder, config: dict, mix: dict, seed: int,
+          seconds: float, cuda: bool, prof=None, break_frames=None):
+    """One warm-up and window of the program's loop → (the loop's
+    statistics, the Window, the SampleSink, the overflow per presented
+    frame, the host clock once the device had finished)."""
+    from kanirenderer_tpu_torch.runtime import loop as loop_module
+    overflow, unwatch = watch_overflow(loop_module)
+    saved_render = loop_module.render_frame
+    if break_frames is not None:
+        loop_module.render_frame = break_frames(saved_render)
+    sink = SampleSink(sample_offsets(seed, seconds, mix["samples"]),
+                      mix["warmup_frames"])
+    window = Window(mix, seed, seconds, sink, cuda, prof)
+    try:
+        run = loop_module.run_loop(scene, window, config=render_config(
+            config, mix), sink=sink, builder=builder,
+            fixed_dt=mix["fixed_dt"])
+    finally:
+        loop_module.render_frame = saved_render
+        unwatch()
+    if cuda:
+        torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    log(f"present mode: {run['present_mode']}")
+    if run["present_mode"] != "AutoNoVsync":
+        raise RuntimeError("the window's frames ran with the vsync cap")
+    if len(overflow) != sink.presented:
+        raise RuntimeError(f"{sink.presented} frames presented, the "
+                           f"overflow of {len(overflow)} seen")
+    return run, window, sink, overflow, t_end
+
+
+def run_cell(cell: dict, config: dict, mix: dict, seed: int,
+             seconds: float, trace: bool, bench: dict,
+             metrics_dir: Path = HERE / "metrics",
+             cache: Path = scenefiles.CACHE, device: str = "cuda",
+             break_frames=None) -> dict:
+    """One run of ``cell``; returns the result's fields.  ``device``
+    "cpu" and ``break_frames`` (a function that wraps the program's
+    ``render_frame``) serve the harness's own tests."""
+    cuda = device == "cuda"
+    directory = scenefiles.scene_dir(config, cache)
+    log(f"scene files ready at {time.perf_counter() - T_START:.4f} s")
+    scene, builder = load_program_scene(config, directory, device)
+    log(f"scene loaded at {time.perf_counter() - T_START:.4f} s")
+    prof = None
+    if trace:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+    run, window, sink, overflow, t_end = drive(
+        scene, builder, config, mix, seed, seconds, cuda, prof,
+        break_frames)
+    attempted = len(window.stamps) - 1
+    frames = run["frames"] - mix["warmup_frames"]
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    failed = int(run["healed"]) + sum(
+        1 for ov in overflow[mix["warmup_frames"]:] if ov)
+
+    trace_path = None
+    if trace:
+        fd, trace_path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        prof.export_chrome_trace(trace_path)
+    result_e2e = end_to_end(window, t_end, frames)
+    del scene, builder, prof, run
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    t_ref = time.perf_counter()
+    ref_scene = reference_scene(config, directory, device)
+    rcfg = reference_config(config, mix)
+    numbers = check_samples(ref_scene, rcfg, mix, seed, sink.samples)
+    log(f"reference: {len(numbers)} frames compared in "
+        f"{time.perf_counter() - t_ref:.4f} s")
+    numbers += [compare.MISSING] * (mix["samples"] - len(numbers))
+    checks = compare.worst(numbers)
+    correct = compare.within(checks)
+
+    device_info = {"platform": "gpu" if cuda else "cpu",
+                   "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+                   "count": 1, "memory_peak_bytes": int(peak)}
+    out = {"correct": correct, "attempted": attempted, "failed": failed}
+    breakdown = None
+    if not trace:
+        out["metrics"] = {m["name"]: {"value": result_e2e[m["name"]],
+                                      "unit": m["unit"]}
+                          for m in bench["end_to_end"]}
+    else:
+        try:
+            t = tr.read(trace_path, window.traced_frames)
+        finally:
+            os.unlink(trace_path)
+        ctx = MetricContext(t, ref_scene, rcfg, mix, seed,
+                            mix["warmup_frames"])
+        metrics = {}
+        for m in bench["per_layer"]:
+            if cell["name"] not in m["workloads"]:
+                continue
+            value = load_metric(metrics_dir, m["name"]).read(ctx)
+            if value is not None:
+                metrics[m["name"]] = {"value": float(value),
+                                      "unit": m["unit"]}
+        out["metrics"] = metrics
+        device_info.update(busy_s=tr.busy_s(t), window_s=t.window_s)
+        breakdown = {"device_ops": tr.top_device_ops(t),
+                     "idle_gaps": tr.idle_gaps(t)}
+        log(f"traced {t.frames} frames in {t.window_s:.4f} s of trace "
+            f"({window.traced_host_s:.4f} s on the host clock); the "
+            f"untraced rest of the window ran {frames - t.frames} frames")
+    out["device"] = device_info
+    if breakdown is not None:
+        out["breakdown"] = breakdown
+    out["checks"] = {k: {"value": checks[k], "limit": compare.LIMITS[k]}
+                     for k in compare.LIMITS}
+    return out
+
+
+def emit(out: dict) -> int:
+    """Prints the result's line, then the compared numbers beside their
+    limits as the last lines of standard error, and returns 0; where a
+    module of ``BANNED`` has been loaded by now (by the program, a metric
+    reader or anything they import), prints no result and returns 1."""
+    found = banned_modules()
+    if found:
+        log(f"modules loaded in the run: {found}; no result")
+        return 1
+    print(json.dumps(out), flush=True)
+    for k, v in out["checks"].items():
+        log(f"check {k} {v['value']!r} limit {v['limit']!r}")
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--seconds", type=float, required=True)
+    p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = p.parse_args(argv)
+    log(f"imports done at {time.perf_counter() - T_START:.4f} s")
+    bench = load_json(BENCHMARK)
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if args.workload not in cells:
+        log(f"no workload {args.workload!r} in BENCHMARK.json")
+        return 2
+    cell = cells[args.workload]
+    if not torch.cuda.is_available() \
+            or torch.cuda.device_count() < cell["chips"]:
+        log(f"the cell needs {cell['chips']} CUDA device(s); "
+            f"found {torch.cuda.device_count()}")
+        return 3
+    configs = {c["name"]: c for c in bench["configs"]}
+    config = load_json(HERE.parent / configs[cell["config"]]["file"])
+    mix = load_json(HERE / "traffic" / f"{cell['traffic']}.json")
+    query = roofline.query_power_limit()
+    try:
+        out = run_cell(cell, config, mix, args.seed, args.seconds,
+                       bool(args.trace), bench)
+    finally:
+        card = roofline.power_limit(query)
+    log(f"card: {card}")
+    return emit(out)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
