@@ -45,6 +45,12 @@ lists then come nearest first and carry the chunks' bounds to the kernel
 (the light-space grid under the default scope "shadow", the main grid
 too under "1"); every scope renders the same pixels.
 
+Spans (utils/spans.py), recorded only while a profiler runs:
+``kani.geometry`` (``frame_geometry``), ``kani.shadow`` (the light-space
+setup and bins inside it, the shadow raster and the PCF table),
+``kani.raster`` (the bands' binning and K2) and ``kani.shade`` (shading
+and the surface encode).
+
 Row bands (``render_band``; parallel/mesh.py drives it): a band is
 ``band_h`` screen rows from ``y0``, contiguous or, with ``band_stride`` n,
 tile rows k, k + n, … (y0 = k·tile_h).  The body is split into stage
@@ -92,6 +98,7 @@ from kanirenderer_tpu_torch.ops.vertex import (CornerOutputs, TriangleSetup,
 from kanirenderer_tpu_torch.passes import overlay
 from kanirenderer_tpu_torch.passes.overlay import linearize_depth  # noqa: F401
 from kanirenderer_tpu_torch.shade import deferred, forward
+from kanirenderer_tpu_torch.utils.spans import span
 
 Tensor = torch.Tensor
 
@@ -208,13 +215,14 @@ def _occ_bound(st: TriangleSetup, cfg: RenderConfig, tile_h: int,
 def _shadow_geometry(scene: Scene, light_clip: Tensor,
                      cfg: RenderConfig) -> ShadowGeometry:
     D = cfg.shadow_dim
-    st, _ = _setup(scene, light_clip, D, D, False, cfg.shadow_bias_constant,
-                   cfg.shadow_bias_slope)
-    bound = _occ_bound(st, cfg, cfg.shadow_tile_h, depth_only=True)
-    return ShadowGeometry(st, bin_tiles(st.bbox, D, D, cfg.tile_w,
-                                        cfg.shadow_tile_h,
-                                        cfg.shadow_chunks_per_tile,
-                                        occ_bound=bound))
+    with span("kani.shadow"):
+        st, _ = _setup(scene, light_clip, D, D, False,
+                       cfg.shadow_bias_constant, cfg.shadow_bias_slope)
+        bound = _occ_bound(st, cfg, cfg.shadow_tile_h, depth_only=True)
+        return ShadowGeometry(st, bin_tiles(st.bbox, D, D, cfg.tile_w,
+                                            cfg.shadow_tile_h,
+                                            cfg.shadow_chunks_per_tile,
+                                            occ_bound=bound))
 
 
 def render_shadow_geometry(scene: Scene, state: FrameState,
@@ -256,31 +264,32 @@ def frame_geometry(scene: Scene, state: FrameState, cfg: RenderConfig,
     bins; by default where the mode has a shadow pass.  ``main_bins``:
     whether to bin the whole main grid (contiguous row bands bin their
     own)."""
-    vw, vh, aspect = view_extent(cfg, view_wh)
-    view_proj, light_vp = uniforms if uniforms is not None \
-        else frame_uniforms(state, cfg, scene.device, aspect)
-    vout = _vertex_stage(scene, state, view_proj, light_vp)
-    if light_space is None:
-        light_space = cfg.mode in SHADOW_MODES
-    sh = _shadow_geometry(scene, vout.light_clip, cfg) if light_space \
-        else ShadowGeometry(None, None)
-    st, planes = _setup(scene, vout.clip, vw, vh,
-                        cull_backfaces=cfg.mode != RenderMode.WIREFRAME)
-    if isinstance(vout, CornerOutputs):
-        records = build_tri_records_corners(vout.varyings, planes,
-                                            scene.tri_extra)
-    else:
-        records = build_tri_records(
-            scene.tri_idx, scene.tri_mat, vout.varyings, scene.mat_blk_base,
-            scene.mat_blk_w, scene.mat_tex_size, setup=st.setup,
-            extra=scene.tri_extra)
-    bound = _occ_bound(st, cfg, cfg.tile_h, depth_only=False)
-    bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w, cfg.tile_h,
-                     cfg.max_chunks_per_tile, occ_bound=bound) \
-        if main_bins else None
-    return Geometry(light_vp=light_vp, vout=vout, shadow_setup=sh.setup,
-                    shadow_bins=sh.bins, setup=st, records=records,
-                    bins=bins, occ_bound=bound)
+    with span("kani.geometry"):
+        vw, vh, aspect = view_extent(cfg, view_wh)
+        view_proj, light_vp = uniforms if uniforms is not None \
+            else frame_uniforms(state, cfg, scene.device, aspect)
+        vout = _vertex_stage(scene, state, view_proj, light_vp)
+        if light_space is None:
+            light_space = cfg.mode in SHADOW_MODES
+        sh = _shadow_geometry(scene, vout.light_clip, cfg) if light_space \
+            else ShadowGeometry(None, None)
+        st, planes = _setup(scene, vout.clip, vw, vh,
+                            cull_backfaces=cfg.mode != RenderMode.WIREFRAME)
+        if isinstance(vout, CornerOutputs):
+            records = build_tri_records_corners(vout.varyings, planes,
+                                                scene.tri_extra)
+        else:
+            records = build_tri_records(
+                scene.tri_idx, scene.tri_mat, vout.varyings,
+                scene.mat_blk_base, scene.mat_blk_w, scene.mat_tex_size,
+                setup=st.setup, extra=scene.tri_extra)
+        bound = _occ_bound(st, cfg, cfg.tile_h, depth_only=False)
+        bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w,
+                         cfg.tile_h, cfg.max_chunks_per_tile,
+                         occ_bound=bound) if main_bins else None
+        return Geometry(light_vp=light_vp, vout=vout,
+                        shadow_setup=sh.setup, shadow_bins=sh.bins, setup=st,
+                        records=records, bins=bins, occ_bound=bound)
 
 
 def _shade(scene: Scene, state: FrameState, cfg: RenderConfig,
@@ -523,39 +532,47 @@ def render_band(scene: Scene, state: FrameState, config: RenderConfig,
     if not needs_shadow:
         shadow_map = shadow_out = torch.ones((D, D), dtype=torch.float32,
                                              device=dev)
-    elif fresh:
-        sh = shadow_geom if shadow_geom is not None \
-            else ShadowGeometry(g.shadow_setup, g.shadow_bins)
-        if shadow_bands > 1:
-            shadow_map, table = banded_shadow(sh, cfg, shadow_bands, comm)
-            shadow_out = small if shadow_map is None else shadow_map
-        else:
-            shadow_map = shadow_out = raster_cuda.rasterize_depth(
-                sh.setup.setup, sh.setup.bbox, sh.bins, D)
-        if comm is None or comm.rank == 0:
-            overflow = overflow + sh.bins.overflow
-    elif use_cached_shadow:
-        shadow_out = torch.zeros((D, D), dtype=torch.float32, device=dev)
+    elif table is not None:
+        shadow_out = small   # the caller holds the table it gave
     else:
-        shadow_out = small   # the caller holds the map or table it gave
-    if needs_shadow and table is None:
-        table = build_shadow_table(shadow_map)
+        with span("kani.shadow"):
+            if fresh:
+                sh = shadow_geom if shadow_geom is not None \
+                    else ShadowGeometry(g.shadow_setup, g.shadow_bins)
+                if shadow_bands > 1:
+                    shadow_map, table = banded_shadow(sh, cfg, shadow_bands,
+                                                      comm)
+                    shadow_out = small if shadow_map is None else shadow_map
+                else:
+                    shadow_map = shadow_out = raster_cuda.rasterize_depth(
+                        sh.setup.setup, sh.setup.bbox, sh.bins, D)
+                if comm is None or comm.rank == 0:
+                    overflow = overflow + sh.bins.overflow
+            elif use_cached_shadow:
+                shadow_out = torch.zeros((D, D), dtype=torch.float32,
+                                         device=dev)
+            else:
+                shadow_out = small   # the caller holds the map it gave
+            if table is None:
+                table = build_shadow_table(shadow_map)
 
     # main raster + varying interpolation, band by band
     pixs = []
-    for b0 in y0s:
-        bins = band_bins(g, cfg, b0, band_h, band_stride)
-        pixs.append(band_pixels(g, cfg, bins, b0, band_h, band_stride))
-        overflow = overflow + bins.overflow
+    with span("kani.raster"):
+        for b0 in y0s:
+            bins = band_bins(g, cfg, b0, band_h, band_stride)
+            pixs.append(band_pixels(g, cfg, bins, b0, band_h, band_stride))
+            overflow = overflow + bins.overflow
 
     depth_tex = None
     if banded and mode == RenderMode.DEBUG \
             and cfg.debug_texture == DebugTexture.SCENE_DEPTH:
         depth_tex = _gather([pix.z for pix in pixs], comm)
-    images = [band_surface(
-        band_shade(scene, state, cfg, pix, table, g.light_vp), state, cfg,
-        pix.z if depth_tex is None else depth_tex, shadow_map, b0)
-        for b0, pix in zip(y0s, pixs)]
+    with span("kani.shade"):
+        images = [band_surface(
+            band_shade(scene, state, cfg, pix, table, g.light_vp), state,
+            cfg, pix.z if depth_tex is None else depth_tex, shadow_map, b0)
+            for b0, pix in zip(y0s, pixs)]
     depth = [pix.z for pix in pixs]
     return FrameOutputs(
         image=images[0] if len(images) == 1 else torch.cat(images),

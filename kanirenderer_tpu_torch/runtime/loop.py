@@ -26,6 +26,12 @@ What the loop keeps off the device's critical path:
   queued the next frame.  The loop never synchronises the whole device;
 * with ``cache_shadow_map`` the PCF table of a forward LIT_SHADOW frame is
   built on the device once per sun move and kept there.
+
+While a profiler runs (``--profile``), each iteration records a
+``kani.frame`` span, the cached table's shadow pass ``kani.shadow``, the
+present ``kani.present`` and its wait on the previous frame's copy
+``kani.present.wait`` (utils/spans.py); ``render_frame`` records the
+frame's stages inside them.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from kanirenderer_tpu_torch.runtime import controllers
 from kanirenderer_tpu_torch.runtime.display import make_sink, to_uint8
 from kanirenderer_tpu_torch.runtime.frametime import FrameTimeGraph
 from kanirenderer_tpu_torch.utils import log
+from kanirenderer_tpu_torch.utils.spans import span
 
 
 class Events(NamedTuple):
@@ -273,7 +280,8 @@ class _Presenter:
         image, overflow, copied, view, scale = self.pending
         self.pending = None
         if copied is not None:
-            copied.synchronize()
+            with span("kani.present.wait"):
+                copied.synchronize()
         img = to_uint8(image)
         if scale > 1:
             if self.sink_scales:
@@ -380,162 +388,167 @@ def run_loop(scene: Scene, events: Iterable[Events],
     for ev in events:
         if ev.quit or (max_frames is not None and frames >= max_frames):
             break
-        now = time.perf_counter()
-        wall, last = now - last, now
-        dt = wall if fixed_dt is None else fixed_dt
+        with span("kani.frame"):
+            now = time.perf_counter()
+            wall, last = now - last, now
+            dt = wall if fixed_dt is None else fixed_dt
 
-        # --- file drop: append a model and rebuild the packed scene ---
-        if ev.dropped_file is not None and builder is not None:
+            # --- file drop: append a model and rebuild the packed scene ---
+            if ev.dropped_file is not None and builder is not None:
+                try:
+                    builder.add_model(
+                        obj_mod.load_obj(ev.dropped_file),
+                        os.path.dirname(os.path.abspath(ev.dropped_file)),
+                        file_type=file_type)
+                    scene = builder.build(dev)
+                    shadow_table = None  # geometry changed
+                    shadow_key = None
+                    if verbose:
+                        log.info("added model %s", ev.dropped_file)
+                except Exception as e:  # missing/corrupt file: keep rendering
+                    log.warn("file drop failed for %r: %s", ev.dropped_file, e)
+
+            # --- window resize (State::resize, src/lib.rs:1166) ---
+            if ev.resize is not None:
+                w, h = ev.resize
+                if w > 0 and h > 0:
+                    view_size = (int(w), int(h))
+                    bw, bh = _bucket(int(w)), _bucket(int(h))
+                    if (bw, bh) != (app.config.width, app.config.height):
+                        app.config = app.config.with_(width=bw, height=bh)
+
+            # --- hotkeys (State::input, src/lib.rs:1208-1379) ---
+            p = ev.pressed
+            if "tab" in p:
+                app.cycle_mode()
+            if "f1" in p:
+                # Present-mode cycle (reference src/lib.rs:1248-1280).  The
+                # headless analog of vsync is frame pacing: AutoVsync/Fifo cap
+                # the loop at 60 Hz (see the sleep below), AutoNoVsync/
+                # Immediate free-run.
+                app.present_mode = (app.present_mode + 1) % len(PRESENT_MODES)
+                log.info("present mode: %s", PRESENT_MODES[app.present_mode])
+            if "f11" in p:
+                # Fullscreen toggle with a real effect on window sinks
+                # (reference src/lib.rs:1231-1247).
+                app.fullscreen = not app.fullscreen
+                if hasattr(sink, "set_fullscreen"):
+                    sink.set_fullscreen(app.fullscreen)
+            if "1" in p:
+                app.toggle_debug_texture()
+            d = app.lights.directional
+            if "2" in p:
+                d = controllers.step_directional_distance_host(d, -10.0)
+            if "3" in p:
+                d = controllers.step_directional_distance_host(d, +10.0)
+            if "r" in ev.held:
+                d = controllers.rotate_directional_light_host(d, 4.0, 0.0, 0.0)
+            if "t" in ev.held:
+                d = controllers.rotate_directional_light_host(d, 0.0, 4.0, 0.0)
+            if "y" in ev.held:
+                d = controllers.rotate_directional_light_host(d, 0.0, 0.0, 4.0)
+
+            # --- controller integration (State::update), on the host ---
+            app.camera = controllers.update_camera_host(
+                app.camera, _camera_inputs(ev), dt)
+            app.lights = app.lights._replace(
+                movable=controllers.update_movable_light_host(
+                    app.lights.movable, _light_inputs(ev), dt),
+                directional=d)
+
+            # --- render ---
+            graph.update(wall)
+            vwh = None
+            if view_size != (app.config.width, app.config.height):
+                vwh = view_size
+            cam = app.camera
             try:
-                builder.add_model(
-                    obj_mod.load_obj(ev.dropped_file),
-                    os.path.dirname(os.path.abspath(ev.dropped_file)),
-                    file_type=file_type)
-                scene = builder.build(dev)
-                shadow_table = None  # geometry changed
-                shadow_key = None
-                if verbose:
-                    log.info("added model %s", ev.dropped_file)
-            except Exception as e:  # missing/corrupt file: keep rendering
-                log.warn("file drop failed for %r: %s", ev.dropped_file, e)
-
-        # --- window resize (State::resize, src/lib.rs:1166) ---
-        if ev.resize is not None:
-            w, h = ev.resize
-            if w > 0 and h > 0:
-                view_size = (int(w), int(h))
-                bw, bh = _bucket(int(w)), _bucket(int(h))
-                if (bw, bh) != (app.config.width, app.config.height):
-                    app.config = app.config.with_(width=bw, height=bh)
-
-        # --- hotkeys (State::input, src/lib.rs:1208-1379) ---
-        p = ev.pressed
-        if "tab" in p:
-            app.cycle_mode()
-        if "f1" in p:
-            # Present-mode cycle (reference src/lib.rs:1248-1280).  The
-            # headless analog of vsync is frame pacing: AutoVsync/Fifo cap
-            # the loop at 60 Hz (see the sleep below), AutoNoVsync/
-            # Immediate free-run.
-            app.present_mode = (app.present_mode + 1) % len(PRESENT_MODES)
-            log.info("present mode: %s", PRESENT_MODES[app.present_mode])
-        if "f11" in p:
-            # Fullscreen toggle with a real effect on window sinks
-            # (reference src/lib.rs:1231-1247).
-            app.fullscreen = not app.fullscreen
-            if hasattr(sink, "set_fullscreen"):
-                sink.set_fullscreen(app.fullscreen)
-        if "1" in p:
-            app.toggle_debug_texture()
-        d = app.lights.directional
-        if "2" in p:
-            d = controllers.step_directional_distance_host(d, -10.0)
-        if "3" in p:
-            d = controllers.step_directional_distance_host(d, +10.0)
-        if "r" in ev.held:
-            d = controllers.rotate_directional_light_host(d, 4.0, 0.0, 0.0)
-        if "t" in ev.held:
-            d = controllers.rotate_directional_light_host(d, 0.0, 4.0, 0.0)
-        if "y" in ev.held:
-            d = controllers.rotate_directional_light_host(d, 0.0, 0.0, 4.0)
-
-        # --- controller integration (State::update), on the host ---
-        app.camera = controllers.update_camera_host(
-            app.camera, _camera_inputs(ev), dt)
-        app.lights = app.lights._replace(
-            movable=controllers.update_movable_light_host(
-                app.lights.movable, _light_inputs(ev), dt),
-            directional=d)
-
-        # --- render ---
-        graph.update(wall)
-        vwh = None
-        if view_size != (app.config.width, app.config.height):
-            vwh = view_size
-        cam = app.camera
-        try:
-            state, uniforms = uploader.upload(
-                frame_uniforms_host(
-                    cam.position, cam.yaw, cam.pitch, d.direction,
-                    d.distance, d.shadow_scene_size, app.config,
-                    view_extent(app.config, vwh)[2]),
-                cam, app.lights.movable, d, points, graph.buffer, scene)
-            # The prebuilt-table path applies to forward LIT_SHADOW
-            # (DEBUG's overlay and the deferred shader take the raw map).
-            tbl = None
-            if (app.config.mode == RenderMode.LIT_SHADOW
-                    and app.config.cache_shadow_map
-                    and not app.config.deferred):
-                D = app.config.shadow_dim
-                key = (D, tuple(np.asarray(d.direction).tolist()),
-                       float(d.distance), float(d.shadow_scene_size))
-                if shadow_table is not None and key == shadow_key:
-                    tbl = shadow_table              # steady state
-                elif frames > 0 and key == shadow_prev_key:
-                    # The sun has settled: one shadow pass, one table.
-                    shadow_table = build_shadow_table(render_shadow_map(
-                        scene, state, app.config, light_vp=uniforms[1]))
-                    shadow_key = key
-                    tbl = shadow_table
-                elif shadow_table is not None:
-                    tbl = shadow_table              # stale while it rotates
-                else:
-                    if shadow_ones is None \
-                            or shadow_ones.shape[0] != (D // 8) ** 2:
-                        shadow_ones = build_shadow_table(torch.ones(
-                            (D, D), dtype=torch.float32, device=dev))
-                    tbl = shadow_ones
-                shadow_prev_key = key
-            out = render_frame(scene, state, app.config, shadow_table=tbl,
-                               view_wh=vwh, uniforms=uniforms)
-            # Present the previous frame: its copy has had this frame's
-            # host work to finish in.  Overruns of the binning caps must
-            # not drop geometry silently; the count came with the frame,
-            # and is looked at every 8th frame.
-            ov = presenter.collect()
-            if ov is not None and frames % 8 == 1:
-                warn_overflow(ov)
-            presenter.submit(out, view_size, app.config.present_scale)
-            heal_streak = 0
-        except Exception as e:
-            heal_streak += 1
-            healed += 1
-            if heal_streak > _MAX_HEAL_STREAK:
-                raise
-            log.warn("frame failed (%s: %s) — rebuilding device state "
-                     "(attempt %d)", type(e).__name__, e, heal_streak)
-            shadow_table = shadow_key = shadow_ones = None
-            presenter.drop()
-            if dev.type == "cuda":
-                if builder is None:
+                state, uniforms = uploader.upload(
+                    frame_uniforms_host(
+                        cam.position, cam.yaw, cam.pitch, d.direction,
+                        d.distance, d.shadow_scene_size, app.config,
+                        view_extent(app.config, vwh)[2]),
+                    cam, app.lights.movable, d, points, graph.buffer, scene)
+                # The prebuilt-table path applies to forward LIT_SHADOW
+                # (DEBUG's overlay and the deferred shader take the raw map).
+                tbl = None
+                if (app.config.mode == RenderMode.LIT_SHADOW
+                        and app.config.cache_shadow_map
+                        and not app.config.deferred):
+                    D = app.config.shadow_dim
+                    key = (D, tuple(np.asarray(d.direction).tolist()),
+                           float(d.distance), float(d.shadow_scene_size))
+                    if shadow_table is not None and key == shadow_key:
+                        tbl = shadow_table          # steady state
+                    elif frames > 0 and key == shadow_prev_key:
+                        # The sun has settled: one shadow pass, one table.
+                        with span("kani.shadow"):
+                            shadow_table = build_shadow_table(
+                                render_shadow_map(scene, state, app.config,
+                                                  light_vp=uniforms[1]))
+                        shadow_key = key
+                        tbl = shadow_table
+                    elif shadow_table is not None:
+                        tbl = shadow_table          # stale while it rotates
+                    else:
+                        if shadow_ones is None \
+                                or shadow_ones.shape[0] != (D // 8) ** 2:
+                            shadow_ones = build_shadow_table(torch.ones(
+                                (D, D), dtype=torch.float32, device=dev))
+                        tbl = shadow_ones
+                    shadow_prev_key = key
+                out = render_frame(scene, state, app.config, shadow_table=tbl,
+                                   view_wh=vwh, uniforms=uniforms)
+                # Present the previous frame: its copy has had this frame's
+                # host work to finish in.  Overruns of the binning caps must
+                # not drop geometry silently; the count came with the frame,
+                # and is looked at every 8th frame.
+                with span("kani.present"):
+                    ov = presenter.collect()
+                    if ov is not None and frames % 8 == 1:
+                        warn_overflow(ov)
+                    presenter.submit(out, view_size, app.config.present_scale)
+                heal_streak = 0
+            except Exception as e:
+                heal_streak += 1
+                healed += 1
+                if heal_streak > _MAX_HEAL_STREAK:
                     raise
-                torch.cuda.empty_cache()
-                scene = builder.build(dev)
-            continue
-        frames += 1
+                log.warn("frame failed (%s: %s) — rebuilding device state "
+                         "(attempt %d)", type(e).__name__, e, heal_streak)
+                shadow_table = shadow_key = shadow_ones = None
+                presenter.drop()
+                if dev.type == "cuda":
+                    if builder is None:
+                        raise
+                    torch.cuda.empty_cache()
+                    scene = builder.build(dev)
+                continue
+            frames += 1
 
-        # --- frame pacing: the vsync-like present modes cap at 60 Hz ---
-        if PRESENT_MODES[app.present_mode] in ("AutoVsync", "Fifo"):
-            budget = 1.0 / 60.0 - (time.perf_counter() - now)
-            if budget > 0:
-                time.sleep(budget)
+            # --- frame pacing: the vsync-like present modes cap at 60 Hz ---
+            if PRESENT_MODES[app.present_mode] in ("AutoVsync", "Fifo"):
+                budget = 1.0 / 60.0 - (time.perf_counter() - now)
+                if budget > 0:
+                    time.sleep(budget)
 
-        # --- depth picking (src/lib.rs:1923-2039): one value indexed on
-        # the device, fetched with its linearization in one copy ---
-        if ev.click_pos is not None:
-            x, y = ev.click_pos
-            x = int(np.clip(x, 0, view_size[0] - 1))
-            y = int(np.clip(y, 0, view_size[1] - 1))
-            raw = out.depth[y, x]
-            depth, lin = torch.stack([raw, linearize_depth(
-                raw, app.config.znear, app.config.zfar)]).tolist()
-            picked.append((x, y, depth, lin))
-            if verbose:
-                print(f"depth at ({x},{y}): raw={depth:.6f} linear={lin:.2f}")
+            # --- depth picking (src/lib.rs:1923-2039): one value indexed on
+            # the device, fetched with its linearization in one copy ---
+            if ev.click_pos is not None:
+                x, y = ev.click_pos
+                x = int(np.clip(x, 0, view_size[0] - 1))
+                y = int(np.clip(y, 0, view_size[1] - 1))
+                raw = out.depth[y, x]
+                depth, lin = torch.stack([raw, linearize_depth(
+                    raw, app.config.znear, app.config.zfar)]).tolist()
+                picked.append((x, y, depth, lin))
+                if verbose:
+                    print(f"depth at ({x},{y}): raw={depth:.6f} "
+                          f"linear={lin:.2f}")
 
-        if verbose and frames % 60 == 0:
-            print(f"frame {frames}: {graph.mean_ms:.2f} ms "
-                  f"({graph.fps:.1f} FPS) mode={app.config.mode.name}")
+            if verbose and frames % 60 == 0:
+                print(f"frame {frames}: {graph.mean_ms:.2f} ms "
+                      f"({graph.fps:.1f} FPS) mode={app.config.mode.name}")
 
     warn_overflow(presenter.collect())  # flush the last pending frame
     sink.close()
