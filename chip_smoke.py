@@ -12,11 +12,16 @@ case); any failure exits non-zero:
      full-size sponza stand-in, 2048² map, bench pose, bit-equal; also the
      grid's chunks per tile and bbox hits per (tile, chunk) pair;
   4. K2 (fused raster + interpolation) against its plain version at
-     1920×1080, same pose, bit-equal; the same counts of its grid;
+     1920×1080, same pose, bit-equal; the same counts of its grid; then
+     the shading kernel (ops/shade_cuda.shade_surface) on K2's pixels and
+     the PCF table of phase 3's map against band_shade -> band_surface on
+     the card: at most SHADE_TOL level off, at most SHADE_OFF of the
+     values off at all, uncovered pixels bit-equal;
   5. small frame: the whole LIT_SHADOW frame through the kernels against
      the plain path on the CPU (256×192, small stand-in), golden criterion;
   6. main path: 3 warm-up + 30 fly-through frames at 1920×1080 with a
-     fresh 2048² shadow map, both kernels launched once per frame;
+     fresh 2048² shadow map, K1, K2 and the shading kernel launched once
+     per frame;
   7. K2w (K2's wireframe variant) against its plain version at 1920×1080,
      bench pose, the camera setup without back-face culling, bit-equal;
   8. K3 (visibility raster) against its plain version at 1920×1080, with
@@ -73,9 +78,10 @@ case); any failure exits non-zero:
      texture, each reassembled torch.equal to render_frame's u8 surface
      and depth and launching its band kernels once per band;
  22. per-band stage times of the LIT_SHADOW frame on the one card, n = 2
-     and 4, contiguous and interleaved: shadow band, raster, shade,
-     surface, K1 and K2, the replicated geometry, the imbalance and the
-     bytes of each collective;
+     and 4, contiguous and interleaved: shadow band, raster, shade and
+     surface (the shading kernel), K1, K2 and the shading kernel's device
+     time, the replicated geometry, the imbalance and the bytes of each
+     collective;
  23. the same frame over torch.distributed: 2 gloo ranks sharing the
      card (and 2 NCCL ranks where there are two cards), 2 frames, each
      rank's frame torch.equal to the one-process frame; then
@@ -136,6 +142,10 @@ APP_SIZE, RESIZE = (1920, 1080), (1600, 900)
 # plane in the same order with no fused multiply-add, so every kernel must
 # be bit-equal (tolerance 0: torch.equal on every output).
 K1_TOL = K2_TOL = K3_TOL = 0.0
+# The shading kernel sums the texture's and the PCF's non-zero lane terms
+# in another order than the plain chain's reductions: on the u8 surface at
+# most one level off, on at most 0.1% of the values.
+SHADE_TOL, SHADE_OFF = 1, 1e-3
 PIXEL_FIELDS = ("tid", "mask", "z", "varyings", "mat_id", "tex_w", "tex_h",
                 "blk_base", "blk_w")
 # The golden criterion (tests/test_golden.py:65-68).
@@ -541,7 +551,7 @@ def application_path(tmp: str, card: str) -> dict:
               flush=True)
         n = LOOP_FRAMES
         want = launches(rasterize_depth=1 if cache else n,
-                        rasterize_pixels=n)
+                        rasterize_pixels=n, shade_forward=n)
         if stats["frames"] != n or counts[run] != want:
             fail(f"{run}: launch counts {counts[run]} != {want}")
         if "binning dropped" in warned.getvalue() or stats["healed"]:
@@ -633,10 +643,11 @@ def application_path(tmp: str, card: str) -> dict:
     n = len(events)
     # frame 1 settles the table; frames 2-4 turn the sun; frame 5 finds it
     # still; the drop (frame 9) rebuilds; DEBUG (frame 11) rasterizes its
-    # own map.
+    # own map.  WIREFRAME, DEBUG and UNLIT (frames 10-12) shade without
+    # the shading kernel.
     want_k1 = [0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 4, 4, 4, 4]
     want = launches(rasterize_depth=4, rasterize_pixels=n - 1,
-                    rasterize_pixels_wireframe=1)
+                    rasterize_pixels_wireframe=1, shade_forward=n - 3)
     picked = stats["picked"]
     if (stats["frames"] != n or stats["mode"] != "LIT_SHADOW"
             or k1_at != want_k1 or counts["events"] != want
@@ -801,7 +812,7 @@ def c_abi(tmp: str, card: str) -> dict:
                 os.environ[k] = v
         for k in [k for k in os.environ if k.startswith("KANI_ARG_")]:
             del os.environ[k]
-    want = launches(rasterize_depth=1, rasterize_pixels=n)
+    want = launches(rasterize_depth=1, rasterize_pixels=n, shade_forward=n)
     ref = frames["api.run"]
     equal = {run: bool(np.array_equal(img, ref)) for run, img in
              frames.items() if run != "api.run"}
@@ -1060,7 +1071,9 @@ def banded_frames(scene, state, kernels, card):
                 want = launches(**{
                     "rasterize_pixels_wireframe_band" if wire
                     else "rasterize_pixels_band": n,
-                    "rasterize_depth_band": n if fresh else 0})
+                    "rasterize_depth_band": n if fresh else 0,
+                    "shade_forward":
+                        n if c.mode == RenderMode.LIT_SHADOW else 0})
                 print(f"phase 21 {name} in {n} "
                       f"{'interleaved' if interleave else 'contiguous'} "
                       f"bands: surface and depth equal to the whole frame "
@@ -1085,16 +1098,17 @@ def band_times(scene, state, card) -> None:
     card, each band's stages run in turn through passes/frame's stage
     functions, as render_band runs them: median host ms of each band's
     shadow stage (its run of the map's bins, its K1 band and its table
-    rows), raster (binning and K2), shade and surface, the graph-replay
-    device ms of its K1 and K2 launches, the replicated geometry, the
-    imbalance max band / mean band and the bytes of each collective."""
+    rows), raster (binning and K2) and shade and surface (the shading
+    kernel), the graph-replay device ms of its K1, K2 and shading
+    launches, the replicated geometry, the imbalance max band / mean band
+    and the bytes of each collective."""
     import torch
     from kanirenderer_tpu_torch import flythrough
+    from kanirenderer_tpu_torch.ops.shade_cuda import shade_surface
     from kanirenderer_tpu_torch.parallel.mesh import _band_geometry
     from kanirenderer_tpu_torch.passes.frame import (ShadowGeometry,
                                                      band_bins, band_edges,
-                                                     band_pixels, band_shade,
-                                                     band_surface,
+                                                     band_pixels,
                                                      frame_geometry,
                                                      shadow_band_map,
                                                      shadow_band_runs,
@@ -1132,17 +1146,16 @@ def band_times(scene, state, card) -> None:
                     g, cfg, band_bins(g, cfg, y0, band_h, stride), y0,
                     band_h, stride))
                 pix = band_pixels(g, cfg, bins, y0, band_h, stride)
-                shade_ms = host_ms(lambda: band_shade(scene, state, cfg, pix,
-                                                      table, g.light_vp))
-                image = band_shade(scene, state, cfg, pix, table, g.light_vp)
-                surface_ms = host_ms(lambda: band_surface(
-                    image, state, cfg, pix.z, None, y0))
-                per.append(dict(total=shadow_ms + raster_ms + shade_ms
-                                + surface_ms, k2=k2_ms))
+                kernel_ms, _ = graph_ms(lambda: shade_surface(
+                    scene, state, cfg, pix, table, g.light_vp))
+                shade_ms = host_ms(lambda: shade_surface(
+                    scene, state, cfg, pix, table, g.light_vp))
+                per.append(dict(total=shadow_ms + raster_ms + shade_ms,
+                                k2=k2_ms))
                 print(f"phase 22 {n} {form} bands, band {k} (y0 {y0}): "
                       f"shadow {shadow_ms:.3f} ms (K1 {k1_ms:.4f}), raster "
-                      f"{raster_ms:.3f} (K2 {k2_ms:.4f}), shade "
-                      f"{shade_ms:.3f}, surface {surface_ms:.3f}, in all "
+                      f"{raster_ms:.3f} (K2 {k2_ms:.4f}), shade and surface "
+                      f"{shade_ms:.3f} (kernel {kernel_ms:.4f}), in all "
                       f"{per[-1]['total']:.3f} ms", flush=True)
             tot = [p["total"] for p in per]
             k2s = [p["k2"] for p in per]
@@ -1201,7 +1214,8 @@ def distributed_form(whole, card, forms) -> None:
     against the whole frame ``whole``, ``torch.equal``."""
     import torch
     from kanirenderer_tpu_torch.parallel.mesh import run_ranks
-    want = launches(rasterize_depth_band=1, rasterize_pixels_band=1)
+    want = launches(rasterize_depth_band=1, rasterize_pixels_band=1,
+                    shade_forward=1)
     frames = 2
     for backend, n, label in forms:
         t0 = time.perf_counter()
@@ -1576,6 +1590,8 @@ def main() -> int:
                                                    frame_state)
     from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
     from kanirenderer_tpu_torch.ops import raster_cuda as rc
+    from kanirenderer_tpu_torch.ops import shade_cuda
+    from kanirenderer_tpu_torch.ops.sampling import build_shadow_table
     from kanirenderer_tpu_torch.passes.frame import (SHADOW_MODES,
                                                      frame_geometry,
                                                      render_frame)
@@ -1668,7 +1684,35 @@ def main() -> int:
         bytes=nbytes(g.records, cs.setup, cs.bbox, b.start, b.count, b.chunk)
         + px_out,
         ops=hits2 * OPS_COVER + int(k2.mask.sum()) * OPS_K2_PIXEL)
-    del k1, p1, k2, p2
+
+    # ---- phase 4: the shading kernel on K2's pixels ----
+    shade_args = (scene, state, cfg, k2, build_shadow_table(k1), g.light_vp)
+    ks = shade_cuda.shade_surface(*shade_args)
+    ps = shade_cuda.shade_surface_plain(*shade_args)
+    torch.cuda.synchronize()
+    diff = (ks.int() - ps.int()).abs()
+    errs, off = int(diff.max()), (diff > 0).double().mean().item()
+    clear_equal = torch.equal(ks[~k2.mask], ps[~k2.mask])
+    eagers = cuda_ms(lambda: shade_cuda.shade_surface(*shade_args), 20)
+    mss, meds = graph_ms(lambda: shade_cuda.shade_surface(*shade_args))
+    pmss = cuda_ms(lambda: shade_cuda.shade_surface_plain(*shade_args), 2)
+    print(f"phase 4 shade kernel {W}x{H}: max|kernel-plain| {errs} levels "
+          f"(tol {SHADE_TOL}), values off {off:.2e} (tol {SHADE_OFF}), "
+          f"uncovered pixels bit-equal {clear_equal}, "
+          f"{timing(mss, meds, eagers)} vs plain {pmss:.1f} ms", flush=True)
+    if errs > SHADE_TOL or off > SHADE_OFF or not clear_equal:
+        fail("the shading kernel disagrees with the plain chain")
+    # Its bound: each pixel's planes read once and the surface written.
+    kernels["shade_forward"] = dict(
+        source="kanirenderer_tpu_torch/csrc/shade_forward.cu",
+        replaces="none: plain tensor code (kanirenderer_tpu/shade/"
+        "forward.py shade_lit, the encode of passes/frame.py render_band)",
+        max_abs_err=errs, ms=mss, ms_median=meds, ms_eager=eagers,
+        plain_ms=pmss,
+        bytes=nbytes(k2.varyings, k2.tex_w, k2.tex_h, k2.blk_base, k2.blk_w,
+                     k2.mask, ks),
+        ops=0)
+    del k1, p1, k2, p2, ks, ps, shade_args
 
     # ---- phase 5: small frame, kernels against the plain CPU path ----
     small_cfg = RenderConfig(width=256, height=192, shadow_dim=256,
@@ -1711,7 +1755,8 @@ def main() -> int:
           f"shadow, launches {counts}, overflow {overflow}, "
           f"image {tuple(img.shape)} {img.dtype} std {std:.2f}, "
           f"covered {covered:.3f}", flush=True)
-    if counts != launches(rasterize_depth=n, rasterize_pixels=n):
+    if counts != launches(rasterize_depth=n, rasterize_pixels=n,
+                          shade_forward=n):
         fail(f"launch counts {counts} != {n} per kernel")
     if overflow:
         fail(f"binning dropped {overflow} chunks")
@@ -1724,6 +1769,7 @@ def main() -> int:
     device_state("after phase 6")
     kernels["rasterize_depth"]["launches"] = counts["rasterize_depth"]
     kernels["rasterize_pixels"]["launches"] = counts["rasterize_pixels"]
+    kernels["shade_forward"]["launches"] = counts["shade_forward"]
 
     # ---- phase 7: K2w against its plain version ----
     wcfg = flythrough.MODE_CONFIGS["wireframe"]
@@ -1844,9 +1890,11 @@ def main() -> int:
             overflow = max(overflow, int(out.raster_overflow))
         counts = dict(rc.launch_counts)
         wire = mcfg.mode == RenderMode.WIREFRAME
+        # The shading kernel: LIT and HDR; the others keep the plain chain.
         want = launches(rasterize_depth=n * (mcfg.mode in SHADOW_MODES),
                         rasterize_pixels=0 if wire else n,
-                        rasterize_pixels_wireframe=n if wire else 0)
+                        rasterize_pixels_wireframe=n if wire else 0,
+                        shade_forward=n if name in ("lit", "hdr") else 0)
         img = out.image
         p = mcfg.present_scale
         dtype = torch.float16 if mcfg.hdr else torch.uint8

@@ -87,11 +87,13 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v"]
 
-# Kernel launches since the last reset, by wrapper name.
+# Kernel launches since the last reset, by wrapper name; "shade_forward"
+# counts ops/shade_cuda.shade_surface, the one kernel of the library that
+# is not a raster.
 launch_counts = {"rasterize_depth": 0, "rasterize_pixels": 0,
                  "rasterize_pixels_wireframe": 0, "rasterize_visibility": 0,
                  "rasterize_depth_band": 0, "rasterize_pixels_band": 0,
-                 "rasterize_pixels_wireframe_band": 0}
+                 "rasterize_pixels_wireframe_band": 0, "shade_forward": 0}
 
 _lib = None
 build_info: dict = {}

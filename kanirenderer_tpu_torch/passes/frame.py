@@ -27,6 +27,11 @@ Per frame, as the reference renders it (src/lib.rs:1707-1914):
      ``present_scale`` box downscale and the ``output_u8`` store (u8 for
      LDR, float16 for HDR).
 
+On the card, LIT and LIT_SHADOW forward frames with the ``output_u8``
+surface at ``present_scale`` 1 take stages 5-6 in one kernel per band
+(ops/shade_cuda.shade_surface, ``shade_cuda.covers``); every other frame
+runs ``band_shade`` and ``band_surface``.
+
 After a window resize the view is smaller than the raster: ``view_wh``
 gives the view's width and height, which set the projection's aspect and
 the extent the triangle setup clamps to, while the kernels keep the
@@ -81,7 +86,7 @@ from kanirenderer_tpu_torch.core.color import linear_to_srgb
 from kanirenderer_tpu_torch.core.types import (DebugTexture, FrameState,
                                                RenderConfig, RenderMode,
                                                Scene)
-from kanirenderer_tpu_torch.ops import raster_cuda
+from kanirenderer_tpu_torch.ops import raster_cuda, shade_cuda
 from kanirenderer_tpu_torch.ops.binning import (ChunkBins, bin_tiles,
                                                 depth_bound, interleave_bins)
 from kanirenderer_tpu_torch.ops.interpolate import (PixelBuffer,
@@ -569,10 +574,14 @@ def render_band(scene: Scene, state: FrameState, config: RenderConfig,
             and cfg.debug_texture == DebugTexture.SCENE_DEPTH:
         depth_tex = _gather([pix.z for pix in pixs], comm)
     with span("kani.shade"):
-        images = [band_surface(
-            band_shade(scene, state, cfg, pix, table, g.light_vp), state,
-            cfg, pix.z if depth_tex is None else depth_tex, shadow_map, b0)
-            for b0, pix in zip(y0s, pixs)]
+        if shade_cuda.covers(cfg, scene, dev):
+            images = [shade_cuda.shade_surface(scene, state, cfg, pix, table,
+                                               g.light_vp) for pix in pixs]
+        else:
+            images = [band_surface(
+                band_shade(scene, state, cfg, pix, table, g.light_vp),
+                state, cfg, pix.z if depth_tex is None else depth_tex,
+                shadow_map, b0) for b0, pix in zip(y0s, pixs)]
     depth = [pix.z for pix in pixs]
     return FrameOutputs(
         image=images[0] if len(images) == 1 else torch.cat(images),

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, K2, K2w, K3) against their plain PyTorch
-versions, and the interactive loop's launch counts, on the card.
+"""The port's CUDA kernels (K1, K2, K2w, K3 and the forward shading
+kernel) against their plain PyTorch versions, and the interactive loop's
+launch counts, on the card.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The GPU machine has no
 JAX, so run them without the suite's conftest (which imports JAX):
@@ -12,7 +13,12 @@ barycentrics and interpolated outputs must be bit-equal (``torch.equal``)
 for every kernel, with the occlusion skip on and off.  The kernels' own
 occlusion counts equal ops/occ_replay's for K2, K2w and K3; K1's blocks
 also read the map other blocks lower, so it skips at least as much.  The loop's steady-state frame (cached PCF table) must
-equal ``render_frame`` with a fresh map, bit for bit.
+equal ``render_frame`` with a fresh map, bit for bit.  The shading kernel
+sums the texture's and the PCF's non-zero lane terms in another order than
+the plain chain's reductions, so on its u8 surface no value may be more
+than one level off and at most 0.1% of values off at all, pixels with no
+coverage bit-equal; on the float16 surface the same at 255 times its
+values.
 """
 
 import os
@@ -23,14 +29,17 @@ import torch
 
 from kanirenderer_tpu_torch.core.types import (CHUNK_SIZE, RenderConfig,
                                                RenderMode, camera_state,
-                                               default_lights, frame_state)
+                                               default_lights, frame_state,
+                                               spawn_point_lights)
 from kanirenderer_tpu_torch.models.procedural import sponza_standin_scene
-from kanirenderer_tpu_torch.ops import occ_replay, raster_cases
+from kanirenderer_tpu_torch.ops import occ_replay, raster_cases, shade_cuda
 from kanirenderer_tpu_torch.ops import raster_cuda as rc
 from kanirenderer_tpu_torch.ops.binning import bin_tiles, depth_bound
 from kanirenderer_tpu_torch.ops.interpolate import FAT_LANES
+from kanirenderer_tpu_torch.ops.sampling import build_shadow_table
 from kanirenderer_tpu_torch.ops.vertex import triangle_setup_corners
-from kanirenderer_tpu_torch.passes.frame import frame_geometry
+from kanirenderer_tpu_torch.passes.frame import (band_bins, band_pixels,
+                                                 frame_geometry)
 
 pytestmark = pytest.mark.cuda
 
@@ -411,9 +420,9 @@ class _Capture:
 
 @pytest.mark.parametrize("cache", [True, False])
 def test_loop_launch_counts(cache):
-    """Steady state: K2 once per frame and K1 once in the run; with
-    cache_shadow_map=False K1 once per frame too; Tab to WIREFRAME
-    launches K2w."""
+    """Steady state: K2 and the shading kernel once per frame and K1 once
+    in the run; with cache_shadow_map=False K1 once per frame too; Tab to
+    WIREFRAME launches K2w and not the shading kernel."""
     from kanirenderer_tpu_torch.runtime.loop import Events, run_loop
     scene = _loop_scene()
     cfg = RenderConfig(width=256, height=192, shadow_dim=256,
@@ -427,7 +436,7 @@ def test_loop_launch_counts(cache):
         "rasterize_depth": 1 if cache else 5, "rasterize_pixels": 5,
         "rasterize_pixels_wireframe": 1, "rasterize_visibility": 0,
         "rasterize_depth_band": 0, "rasterize_pixels_band": 0,
-        "rasterize_pixels_wireframe_band": 0}
+        "rasterize_pixels_wireframe_band": 0, "shade_forward": 5}
 
 
 def test_loop_steady_state_equals_fresh_frame():
@@ -481,3 +490,109 @@ def test_run_kanirenderer_on_the_card(tmp_path, monkeypatch):
     assert code == 0
     assert rc.launch_counts["rasterize_pixels"] == 4
     assert rc.launch_counts["rasterize_depth"] == 1
+    assert rc.launch_counts["shade_forward"] == 4
+
+
+@pytest.fixture(scope="module", params=["loop", "bench"])
+def shade_inputs(request):
+    """The small loop scene at 256x192 and the full-size stand-in at the
+    bench pose at 1920x1080: (scene, state, geometry, PCF table,
+    LIT_SHADOW config with the u8 surface)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from kanirenderer_tpu_torch import flythrough
+    dev = torch.device("cuda", 0)
+    if request.param == "loop":
+        scene = _loop_scene()
+        cam = camera_state([-900.0, 180.0, 0.0], 0.0, np.deg2rad(-5.0), dev)
+        cfg = RenderConfig(width=256, height=192, shadow_dim=256,
+                           output_u8=True)
+    else:
+        scene = sponza_standin_scene(device=dev)
+        c0 = flythrough.BENCH_CAM0
+        cam = camera_state(c0.position, c0.yaw, c0.pitch, dev)
+        cfg = flythrough.BENCH_CONFIG
+    state = frame_state(scene, cam, default_lights(device=dev))
+    g = frame_geometry(scene, state, cfg)
+    sh = g.shadow_setup
+    table = build_shadow_table(rc.rasterize_depth(sh.setup, sh.bbox,
+                                                  g.shadow_bins,
+                                                  cfg.shadow_dim))
+    return scene, state, g, table, cfg
+
+
+def _edge_cases(pix):
+    """u, v far outside [0, 1] (Repeat wrap), world positions whose shadow
+    coordinates fall outside the map (clamp), and every seventh row
+    uncovered."""
+    vary = pix.varyings.clone()
+    vary[15] = vary[15] * 3.0 - 1.3
+    vary[16] = vary[16] * -2.0 + 0.7
+    half = vary.shape[2] // 2
+    vary[12, :, :half] += 4000.0
+    vary[14, :, half:] -= 4000.0
+    mask = pix.mask.clone()
+    mask[::7] = False
+    return pix._replace(varyings=vary, mask=mask)
+
+
+def _check_surface(got, want, mask):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = 255.0 if got.dtype == torch.float16 else 1.0
+    diff = (got.double() - want.double()).abs() * scale
+    off = (diff > 0).double().mean().item()
+    assert diff.max().item() <= 1.0, diff.max().item()
+    assert off <= 1e-3, off
+    assert torch.equal(got[~mask], want[~mask])
+    return off
+
+
+@pytest.mark.parametrize("hdr", [False, True])
+@pytest.mark.parametrize("mode", [RenderMode.LIT, RenderMode.LIT_SHADOW])
+def test_shade_kernel_matches_plain(shade_inputs, mode, hdr):
+    """shade_surface against band_shade -> band_surface on the same
+    PixelBuffer: one band and 3 contiguous bands, the default rig and 150
+    spawned point lights, the edge cases of ``_edge_cases``."""
+    scene, state, g, table, cfg = shade_inputs
+    cfg = cfg.with_(mode=mode, hdr=hdr)
+    tbl = table if mode == RenderMode.LIT_SHADOW else None
+    dev = scene.device
+    spawned = state._replace(lights=state.lights._replace(
+        points=spawn_point_lights(50, device=dev)))
+    assert spawned.lights.points.range.numel() == 150
+    for n in (1, 3):
+        band_h = cfg.height // n
+        for k in range(n):
+            y0 = k * band_h
+            pix = band_pixels(g, cfg, band_bins(g, cfg, y0, band_h), y0,
+                              band_h)
+            assert pix.mask.any()
+            for st, p in ((state, pix), (spawned, _edge_cases(pix))):
+                before = rc.launch_counts["shade_forward"]
+                got = shade_cuda.shade_surface(scene, st, cfg, p, tbl,
+                                               g.light_vp)
+                assert rc.launch_counts["shade_forward"] == before + 1
+                want = shade_cuda.shade_surface_plain(scene, st, cfg, p, tbl,
+                                                      g.light_vp)
+                torch.cuda.synchronize()
+                _check_surface(got, want, p.mask)
+                scale = 255.0 if hdr else 1.0
+                assert got.float().std().item() * scale > 0.1
+
+
+def test_shade_wrapper_rejects_what_the_kernel_does_not_take(shade_inputs):
+    scene, state, g, table, cfg = shade_inputs
+    pix = band_pixels(g, cfg, g.bins, 0, cfg.height)
+    for bad in (cfg.with_(mode=RenderMode.UNLIT), cfg.with_(deferred=True),
+                cfg.with_(present_scale=2), cfg.with_(output_u8=False)):
+        with pytest.raises(ValueError):
+            shade_cuda.shade_surface(scene, state, bad, pix, table,
+                                     g.light_vp)
+    with pytest.raises(ValueError):   # LIT_SHADOW without its table
+        shade_cuda.shade_surface(scene, state, cfg, pix, None, g.light_vp)
+    with pytest.raises(ValueError):   # a table of another map size
+        shade_cuda.shade_surface(scene, state, cfg, pix, table[:-1],
+                                 g.light_vp)
+    with pytest.raises(ValueError):
+        shade_cuda.shade_surface(scene, state, cfg, pix._replace(
+            varyings=pix.varyings[:16]), table, g.light_vp)
