@@ -43,12 +43,14 @@ def main(argv=None) -> int:
     mix = run.load_json(run.HERE / "traffic" / f"{cell['traffic']}.json")
     seeds = [int(s) for s in args.seeds.split(",")]
     control = [int(s) for s in args.control_seeds.split(",") if s]
+    pcfg = run.render_config(config, mix)
+    rcfg = run.reference_config(config, mix)
     directory = scenefiles.scene_dir(config)
     scene, builder = run.load_program_scene(config, directory, "cuda")
     samples = {}
     for seed in sorted(set(seeds) | set(control)):
         r, window, sink, overflow, t_end = run.drive(
-            scene, builder, config, mix, seed, args.seconds, True)
+            scene, builder, pcfg, mix, seed, args.seconds, True)
         samples[seed] = sink.samples
         frames = r["frames"] - mix["warmup_frames"]
         print(json.dumps({"seed": seed, "kind": "window", "frames": frames,
@@ -61,7 +63,6 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ref_scene = run.reference_scene(config, directory, "cuda")
-    rcfg = run.reference_config(config, mix)
     lows, ups = [], []
     for seed in seeds:
         w = compare.worst(run.check_samples(ref_scene, rcfg, mix, seed,

@@ -6,22 +6,26 @@ process, one result line.
 
 A cell is a configuration (``configs/<name>.json``: the scene and the
 surface) under a traffic mix (``traffic/<name>.json``: the mode and the
-fly-through's parameters).  The run:
+fly-through's parameters); either may add a ``render`` object of
+RenderConfig fields, applied alike to the program's and the reference's.
+The run:
 
-1. writes the configuration's scene as OBJ + MTL + PNG files once per
-   checkout (``scenefiles.py``) and loads them with the program's
-   ``api.load_model_or_default``, checking the triangle and material
-   counts (the loader falls back to a cube where a load fails);
+1. writes the configuration's scene, made by the generator that its
+   ``geometry.generator`` names (``scenes/<name>.py``), as OBJ + MTL + PNG
+   files once per checkout (``scenefiles.py``) and loads them with the
+   program's ``api.load_model_or_default``, checking the triangle and
+   material counts (the loader falls back to a cube where a load fails);
 2. drives the program's interactive loop, ``runtime.loop.run_loop``, with
    the mix's events (``traffic.py``; F1 in the first frame leaves the
    loop's 60 Hz cap), a fixed 1/60 s controller step and a sink that keeps
    a copy of a few presented frames, drawn from the seed;
 3. warms up for the mix's ``warmup_frames``, synchronises, and measures
    every frame of ``--seconds`` seconds back to back (closed loop), then
-   synchronises again;
-4. with ``--trace 1`` profiles the first ``TRACE_SECONDS`` of the window
-   and reads the per-layer metrics (``metrics/<name>.py``) from the
-   trace;
+   synchronises again; the frame time of each 5 s slice of the window
+   goes to standard error;
+4. with ``--trace 1`` profiles the first ``TRACE_SECONDS`` of the window,
+   with ``TRACE_MARGIN_FRAMES`` traced frames before and after it, and
+   reads the per-layer metrics (``metrics/<name>.py``) from the trace;
 5. frees the program's scene and renders the sampled frames' poses with
    the plain reference (``reference/``), which recomputes the poses from
    the events and the scene from the generated arrays and the files, and
@@ -38,6 +42,8 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import dataclasses  # noqa: E402
+import enum  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -60,8 +66,16 @@ BANNED = ("jax", "jaxlib", "flax", "kanirenderer_tpu")
 # The traced part of a --trace 1 window, seconds: enough frames for the
 # per-frame counts, few enough events for the trace to be read in time.
 TRACE_SECONDS = 3.0
+# Frames the profiler runs before the traced window's first marker and
+# after its last.  The kernels' records drift against the host's calls on
+# the trace's clock, by up to about 1.3% of a 3 s window on an NVIDIA H100,
+# so those of the window's last kernels can lie tens of milliseconds past
+# its last marker; the margin keeps the profiler on until they are in.
+TRACE_MARGIN_FRAMES = 20
 # How many traced poses the roofline's work is counted on.
 WORK_POSES = 2
+# The slices of the window whose frame times go to standard error, seconds.
+SLICE_SECONDS = 5.0
 
 
 def log(*parts) -> None:
@@ -149,7 +163,9 @@ def watch_overflow(loop_module):
 class Window:
     """The run's event stream around the mix's: warm-up frames, then the
     measured window with a host-clock stamp as each frame is asked for,
-    then quit; with a profiler, the traced part between its markers."""
+    then quit; with a profiler, the traced part between its markers,
+    the profiler running ``TRACE_MARGIN_FRAMES`` frames before and after
+    them."""
 
     def __init__(self, mix, seed, seconds, sink, cuda, profiler=None):
         self.mix, self.seed, self.seconds = mix, seed, seconds
@@ -159,6 +175,7 @@ class Window:
         self.stamps = []
         self.traced_frames = None
         self.traced_host_s = None
+        self._stop_at = None   # the frame at which the profiler stops
 
     def _sync(self):
         if self.cuda:
@@ -168,27 +185,39 @@ class Window:
         with torch.profiler.record_function(name):
             pass
 
-    def _stop_trace(self, frames):
-        start = time.perf_counter()
-        self._mark(tr.END)
-        self._sync()
-        self._mark(tr.DRAINED)
-        self.prof.stop()
-        self.traced_frames = frames
-        self.traced_host_s = start - self.t0
-        # The window's clock, and the sink's, leave out the profiler's
-        # stop, so that a traced run samples and runs as long as another.
+    def _pause(self, start):
+        # The window's clock, and the sink's, leave out the traced
+        # window's drain and the profiler's stop, so that a traced run
+        # samples and runs as long as another.
         paused = time.perf_counter() - start
         self.t0 += paused
         self.sink.t0 += paused
 
+    def _end_trace(self, i):
+        start = time.perf_counter()
+        self._mark(tr.END)
+        self._sync()
+        self._mark(tr.DRAINED)
+        self.traced_frames = i - self.warmup
+        self.traced_host_s = start - self.t0
+        self._stop_at = i + TRACE_MARGIN_FRAMES
+        self._pause(start)
+
+    def _stop_profiler(self):
+        start = time.perf_counter()
+        self.prof.stop()
+        self._stop_at = None
+        self._pause(start)
+
     def __iter__(self):
         from kanirenderer_tpu_torch.runtime.loop import Events
         for i, ev in enumerate(traffic.events(self.mix, self.seed)):
+            if self.prof is not None \
+                    and i == max(self.warmup - TRACE_MARGIN_FRAMES, 0):
+                self.prof.start()
             if i == self.warmup:
                 self._sync()
                 if self.prof is not None:
-                    self.prof.start()
                     self._mark(tr.BEGIN)
                 self.t0 = self.sink.t0 = time.perf_counter()
                 log(f"warm-up done at {self.t0 - T_START:.4f} s")
@@ -198,8 +227,12 @@ class Window:
                 if self.prof is not None and self.traced_frames is None \
                         and now - self.t0 >= min(TRACE_SECONDS,
                                                  self.seconds):
-                    self._stop_trace(i - self.warmup)
-                if now - self.t0 >= self.seconds:
+                    self._end_trace(i)
+                last = now - self.t0 >= self.seconds
+                if self._stop_at is not None and (i >= self._stop_at
+                                                  or last):
+                    self._stop_profiler()
+                if last:
                     yield Events(quit=True)
                     return
             yield Events(held=ev.held, pressed=ev.pressed,
@@ -207,41 +240,65 @@ class Window:
                          mouse_look=ev.mouse_look)
 
 
+def slice_ms(stamps: list, t0: float, width: float = SLICE_SECONDS) -> list:
+    """The mean frame interval, in ms, of each ``width`` seconds of the
+    window from ``t0``: the intervals between consecutive ``stamps`` whose
+    end falls in the slice; a slice with none is left out."""
+    spans = {}
+    for a, b in zip(stamps, stamps[1:]):
+        k = int((b - t0) // width)
+        n, total = spans.get(k, (0, 0.0))
+        spans[k] = (n + 1, total + b - a)
+    return [1e3 * total / n for _, (n, total) in sorted(spans.items())]
+
+
 class MetricContext:
-    """What a per-layer metric reader gets: the traced window and the
-    reference's count of a kernel's work on traced poses."""
+    """What a per-layer metric reader gets: the traced window, and what a
+    reader needs to count a kernel's work on traced poses with
+    ``roofline``'s functions: the reference's scene, its RenderConfig and
+    the poses of ``WORK_POSES`` traced frames, evenly over the trace."""
 
     def __init__(self, trace, ref_scene, cfg, mix, seed, first_frame):
         self.trace = trace
-        self._scene, self._cfg = ref_scene, cfg
+        self.scene = ref_scene
+        self.config = cfg
         self._mix, self._seed, self._first = mix, seed, first_frame
+        self._poses = None
         self._work = {}
+
+    @property
+    def poses(self) -> list:
+        """The camera poses (``reference.frame`` form) of ``WORK_POSES``
+        frames spread over the traced window, as the loop rendered
+        them."""
+        if self._poses is None:
+            frames = max(self.trace.frames, 1)
+            gs = sorted({self._first + k * frames // WORK_POSES
+                         for k in range(WORK_POSES)})
+            every = traffic.poses(self._mix, self._seed, gs[-1] + 1)
+            self._poses = [every[g] for g in gs]
+        return self._poses
 
     def work(self, kind: str) -> tuple:
         """(bytes, operations) of a K1 ("depth") or a K2 or K2w ("pixels",
-        by the cell's mode) launch, the mean over ``WORK_POSES`` traced
-        poses."""
+        by the cell's mode) launch, the mean over ``poses``."""
         if kind not in self._work:
-            self._work[kind] = _work(self._scene, self._cfg, self._mix,
-                                     self._seed, self._first,
-                                     max(self.trace.frames, 1), kind)
+            self._work[kind] = _work(self.scene, self.config, self.poses,
+                                     kind)
         return self._work[kind]
 
 
 @torch.no_grad()
-def _work(scene, cfg, mix, seed, first, frames, kind):
+def _work(scene, cfg, poses, kind):
     from portbench.reference import frame as rf
     from portbench.reference.binning import bin_tiles
     from portbench.reference.interpolate import build_tri_records_corners
     from portbench.reference.raster import rasterize_pixels_plain
     from portbench.reference.types import RenderMode
 
-    gs = sorted({first + k * frames // WORK_POSES
-                 for k in range(WORK_POSES)})
-    all_poses = traffic.poses(mix, seed, gs[-1] + 1)
     counts = []
-    for g in gs:
-        _, _, vout, st, planes = rf.camera_geometry(scene, all_poses[g], cfg)
+    for pose in poses:
+        _, _, vout, st, planes = rf.camera_geometry(scene, pose, cfg)
         if kind == "depth":
             counts.append(roofline.depth_work(
                 rf.shadow_setup(scene, vout, cfg).bbox, cfg.shadow_dim))
@@ -270,21 +327,83 @@ def end_to_end(window: Window, t_end: float, frames: int) -> dict:
     }
 
 
+# RenderConfig fields that the files' own keys set: ``width``, ``height``
+# and ``shadow_map`` of the configuration, ``mode`` and
+# ``cache_shadow_map`` of the mix; the reference's surface is u8, as the
+# loop's.
+BASE_FIELDS = ("width", "height", "shadow_dim", "mode", "cache_shadow_map",
+               "output_u8")
+
+
+def render_settings(config: dict, mix: dict) -> dict:
+    """The ``render`` objects of the configuration and the mix together:
+    RenderConfig field → value, enums by name.  Raises where both files,
+    or a file and its own keys, set one field."""
+    a, b = config.get("render", {}), mix.get("render", {})
+    doubled = sorted(set(a) & set(b))
+    if doubled:
+        raise ValueError(f"render keys {doubled} are set by both the "
+                         f"configuration {config['name']!r} and the mix "
+                         f"{mix['name']!r}")
+    fixed = sorted((set(a) | set(b)) & set(BASE_FIELDS))
+    if fixed:
+        raise ValueError(f"render keys {fixed} are set by the files' own "
+                         "keys (width, height, shadow_map, mode, "
+                         "cache_shadow_map)")
+    return {**a, **b}
+
+
+def _with_settings(cls, base: dict, settings: dict):
+    """``cls(**base)`` with ``settings`` applied: each key a field of
+    ``cls``, an enum field's value its member's name, a tuple field's a
+    list, any other of the default's type."""
+    fields = {f.name: f.default for f in dataclasses.fields(cls)}
+    unknown = sorted(set(settings) - set(fields))
+    if unknown:
+        raise ValueError(f"render keys {unknown} are no fields of "
+                         f"{cls.__module__}.{cls.__name__}")
+    kw = dict(base)
+    for key, value in settings.items():
+        default = fields[key]
+        kind = type(default)
+        if isinstance(default, enum.Enum):
+            if value not in kind.__members__:
+                raise ValueError(f"render key {key!r}: {value!r} is not one "
+                                 f"of {list(kind.__members__)}")
+            value = kind[value]
+        elif isinstance(default, tuple) and isinstance(value, list):
+            value = tuple(value)
+        elif kind is float and type(value) is int:
+            value = float(value)
+        if type(value) is not kind:
+            raise ValueError(f"render key {key!r}: {value!r} is no "
+                             f"{kind.__name__}")
+        kw[key] = value
+    return cls(**kw)
+
+
 def render_config(config: dict, mix: dict):
+    """The program's RenderConfig of a configuration under a mix."""
     from kanirenderer_tpu_torch.core.types import RenderConfig, RenderMode
-    return RenderConfig(width=config["width"], height=config["height"],
-                        shadow_dim=config["shadow_map"],
-                        mode=RenderMode[mix["mode"]],
-                        cache_shadow_map=mix["cache_shadow_map"])
+    return _with_settings(
+        RenderConfig, dict(width=config["width"], height=config["height"],
+                           shadow_dim=config["shadow_map"],
+                           mode=RenderMode[mix["mode"]],
+                           cache_shadow_map=mix["cache_shadow_map"]),
+        render_settings(config, mix))
 
 
 def reference_config(config: dict, mix: dict):
+    """The reference's RenderConfig of a configuration under a mix: the
+    program's, with the loop's u8 surface."""
     from portbench.reference.types import RenderConfig, RenderMode
-    return RenderConfig(width=config["width"], height=config["height"],
-                        shadow_dim=config["shadow_map"],
-                        mode=RenderMode[mix["mode"]],
-                        cache_shadow_map=mix["cache_shadow_map"],
-                        output_u8=True)
+    return _with_settings(
+        RenderConfig, dict(width=config["width"], height=config["height"],
+                           shadow_dim=config["shadow_map"],
+                           mode=RenderMode[mix["mode"]],
+                           cache_shadow_map=mix["cache_shadow_map"],
+                           output_u8=True),
+        render_settings(config, mix))
 
 
 def reference_scene(config: dict, directory: Path, device):
@@ -326,9 +445,10 @@ def load_program_scene(config: dict, directory: Path, device: str):
     return scene, builder
 
 
-def drive(scene, builder, config: dict, mix: dict, seed: int,
+def drive(scene, builder, pcfg, mix: dict, seed: int,
           seconds: float, cuda: bool, prof=None, break_frames=None):
-    """One warm-up and window of the program's loop → (the loop's
+    """One warm-up and window of the program's loop under its RenderConfig
+    ``pcfg`` (``render_config``) → (the loop's
     statistics, the Window, the SampleSink, the overflow per presented
     frame, the host clock once the device had finished)."""
     from kanirenderer_tpu_torch.runtime import loop as loop_module
@@ -340,9 +460,8 @@ def drive(scene, builder, config: dict, mix: dict, seed: int,
                       mix["warmup_frames"])
     window = Window(mix, seed, seconds, sink, cuda, prof)
     try:
-        run = loop_module.run_loop(scene, window, config=render_config(
-            config, mix), sink=sink, builder=builder,
-            fixed_dt=mix["fixed_dt"])
+        run = loop_module.run_loop(scene, window, config=pcfg, sink=sink,
+                                   builder=builder, fixed_dt=mix["fixed_dt"])
     finally:
         loop_module.render_frame = saved_render
         unwatch()
@@ -365,12 +484,19 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int,
              break_frames=None) -> dict:
     """One run of ``cell``; returns the result's fields.  ``device``
     "cpu" and ``break_frames`` (a function that wraps the program's
-    ``render_frame``) serve the harness's own tests."""
+    ``render_frame``) serve the harness's own tests.  A configuration's
+    generator or render keys that do not resolve raise before anything
+    is loaded."""
     cuda = device == "cuda"
+    pcfg = render_config(config, mix)
+    rcfg = reference_config(config, mix)
+    t_cell = time.perf_counter()
     directory = scenefiles.scene_dir(config, cache)
-    log(f"scene files ready at {time.perf_counter() - T_START:.4f} s")
+    t_files = time.perf_counter()
+    log(f"scene files ready at {t_files - T_START:.4f} s")
     scene, builder = load_program_scene(config, directory, device)
-    log(f"scene loaded at {time.perf_counter() - T_START:.4f} s")
+    t_loaded = time.perf_counter()
+    log(f"scene loaded at {t_loaded - T_START:.4f} s")
     prof = None
     if trace:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -378,8 +504,7 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int,
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
     run, window, sink, overflow, t_end = drive(
-        scene, builder, config, mix, seed, seconds, cuda, prof,
-        break_frames)
+        scene, builder, pcfg, mix, seed, seconds, cuda, prof, break_frames)
     attempted = len(window.stamps) - 1
     frames = run["frames"] - mix["warmup_frames"]
     peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -392,6 +517,11 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int,
         os.close(fd)
         prof.export_chrome_trace(trace_path)
     result_e2e = end_to_end(window, t_end, frames)
+    log(f"setup parts, s: imports {t_cell - T_START:.4f}, scene files "
+        f"{t_files - t_cell:.4f}, load {t_loaded - t_files:.4f}, warm-up "
+        f"{window.t0 - t_loaded:.4f}")
+    log("frame ms of each 5 s slice: " + " ".join(
+        f"{ms:.4f}" for ms in slice_ms(window.stamps, window.t0)))
     del scene, builder, prof, run
     gc.collect()
     if cuda:
@@ -399,7 +529,6 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int,
 
     t_ref = time.perf_counter()
     ref_scene = reference_scene(config, directory, device)
-    rcfg = reference_config(config, mix)
     numbers = check_samples(ref_scene, rcfg, mix, seed, sink.samples)
     log(f"reference: {len(numbers)} frames compared in "
         f"{time.perf_counter() - t_ref:.4f} s")

@@ -9,14 +9,14 @@ moment the host is in the innermost ``kani.*`` span open then, or in none
 (the harness's event generation between frames, the drain after the
 window).
 
-Kernels.  ``trace.read`` keeps no link between a launch call and its
-kernel.  The program launches its kernels on one stream, and the harness
-synchronises before ``BEGIN`` and before ``DRAINED``, so the window's
-kernels ran in the order of its launch calls: the n-th launch call, in
-host order, launched the n-th kernel, in device order.  A kernel counts
-for the span innermost at its launch call.  Where the two counts differ
-the pairing is unknown, and ``attribution`` gives None, never a guess:
-a trace that lost device events would also show their time as idle.
+Kernels.  Each launch call that starts in the window finds its kernel
+by the correlation id that the profiler gives both (``Trace.kernels``),
+wherever the kernel's record lies in time: the records of kernels
+launched near the window's ends can fall outside the window's markers,
+and records of kernels launched outside it inside them.  A kernel counts,
+whole, for the span innermost at its launch call.  Where a launch call
+has no kernel record, the kernel time by span is unknown, and
+``Attribution.device_us`` is None, never a guess.
 
 Idle.  Each stretch of the window in which no device op ran (the
 complement of ``trace.busy_intervals``) is split by the host's innermost
@@ -29,6 +29,7 @@ module finds its span: each then reads None.
 from __future__ import annotations
 
 import bisect
+import sys
 from typing import NamedTuple
 
 from portbench import trace as tr
@@ -40,7 +41,7 @@ class Attribution(NamedTuple):
     """Per innermost span (None: outside every span) of the window."""
 
     seen: frozenset   # the span names that occur in the window
-    device_us: dict   # kernel time launched there
+    device_us: dict   # kernel time launched there; None: not paired
     idle_us: dict     # device idle while the host was there
     launches: dict    # kernel launch calls
     syncs: dict       # calls that wait for the device
@@ -103,31 +104,45 @@ def _is_kernel(name: str) -> bool:
     return not name.startswith(("Memcpy", "Memset"))
 
 
-def _attribute(trace: tr.Trace) -> Attribution | None:
+def _launches(trace: tr.Trace) -> list:
+    """[start, end, correlation ids] of the window's launches, in order:
+    a launch call nested in another (a cuLaunchKernel inside a
+    cudaLaunchKernel) is part of that launch."""
+    out = []
+    for s, t, corr in trace.launches:
+        if out and s < out[-1][1]:
+            out[-1][2].add(corr)
+        else:
+            out.append([s, t, {corr}])
+    return out
+
+
+def _attribute(trace: tr.Trace) -> Attribution:
     spans = program_spans(trace)
     segments = innermost(spans)
     starts = [s for s, _, _ in segments]
-    in_window = sorted((s, t, n) for s, t, n in trace.host
-                       if trace.begin_us <= s < trace.drained_us)
-    launches = []
-    for s, t, n in in_window:
-        # A cuLaunchKernel inside a cudaLaunchKernel is that launch.
-        if n in tr.LAUNCHES and not (launches and s < launches[-1][1]):
-            launches.append((s, t))
-    kernels = [(s, t) for s, t, n in trace.device if _is_kernel(n)]
-    if len(launches) != len(kernels):
-        return None
 
     def add(d, key, v):
         d[key] = d.get(key, 0) + v
 
     device, idle, launched, syncs = {}, {}, {}, {}
-    for (ls, _), (ks, kt) in zip(launches, kernels):
+    unpaired = 0
+    for ls, _, ids in _launches(trace):
         where = _span_at(starts, segments, ls)
-        add(device, where, kt - ks)
         add(launched, where, 1)
-    for s, _, n in in_window:
-        if n in tr.SYNCS:
+        found = [trace.kernels[c] for c in ids if c in trace.kernels]
+        if len(found) != 1:
+            unpaired += 1
+            continue
+        ks, kt = found[0]
+        add(device, where, kt - ks)
+    if unpaired:
+        print(f"portbench.spans: {unpaired} of the traced window's launch "
+              "calls have no kernel record; no kernel time by span",
+              file=sys.stderr, flush=True)
+        device = None
+    for s, _, n in trace.host:
+        if n in tr.SYNCS and trace.begin_us <= s < trace.drained_us:
             add(syncs, _span_at(starts, segments, s), 1)
     k = 0
     for a, b in _idle(trace):
@@ -152,7 +167,7 @@ def _attribute(trace: tr.Trace) -> Attribution | None:
 _last = (None, None)
 
 
-def attribution(trace: tr.Trace) -> Attribution | None:
+def attribution(trace: tr.Trace) -> Attribution:
     """``trace``'s attribution, computed once for the trace the readers
     share."""
     global _last
@@ -165,21 +180,22 @@ def _per_frame_ms(ctx, name: str, field: str):
     if ctx.trace.frames <= 0:
         return None
     att = attribution(ctx.trace)
-    if att is None or name not in att.seen:
+    by_span = getattr(att, field)
+    if name not in att.seen or by_span is None:
         return None
-    return getattr(att, field).get(name, 0.0) * 1e-3 / ctx.trace.frames
+    return by_span.get(name, 0.0) * 1e-3 / ctx.trace.frames
 
 
 def device_ms(ctx, name: str):
     """Milliseconds a frame of kernel time launched with ``name`` the
-    innermost span; None where the window has no such span or the
-    launches cannot be paired with the kernels."""
+    innermost span; None where the window has no such span or a launch
+    call has no kernel record."""
     return _per_frame_ms(ctx, name, "device_us")
 
 
 def idle_ms(ctx, name: str):
     """Milliseconds a frame of device idle while ``name`` was the host's
-    innermost span; None as for ``device_ms``."""
+    innermost span; None where the window has no such span."""
     return _per_frame_ms(ctx, name, "idle_us")
 
 

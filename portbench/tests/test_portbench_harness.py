@@ -7,12 +7,14 @@ their own; and without a card the command prints no result."""
 import json
 import shutil
 import sys
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from portbench import compare, run, scenefiles, traffic
+from portbench import trace as tr
 from portbench.tests.conftest import ROOT, tiny_mix
 
 SEED = 2**31 + 1234
@@ -244,3 +246,41 @@ def test_sample_offsets_lie_in_the_window():
     assert offs == sorted(offs) and 0.0 < offs[0] and offs[-1] < 20.0
     assert offs == run.sample_offsets(SEED, 20.0, 4)
     assert not np.allclose(offs, run.sample_offsets(SEED + 1, 20.0, 4))
+
+
+@pytest.mark.parametrize("seconds, stops_on_margin", [(0.6, True),
+                                                     (0.08, False)])
+def test_the_profiler_runs_a_margin_around_the_traced_window(
+        monkeypatch, seconds, stops_on_margin):
+    """The profiler starts ``TRACE_MARGIN_FRAMES`` frames before the
+    window's first marker and stops as many after its last, or at the
+    window's end where that comes first; the markers sit where they did,
+    the first after the warm-up, the last two once the traced time is
+    up."""
+    mix = dict(tiny_mix("fly-cached"), warmup_frames=30)
+    seen, calls = [], []
+
+    class Profiler:
+        def start(self):
+            calls.append(("start", len(seen)))
+
+        def stop(self):
+            calls.append(("stop", len(seen)))
+
+    monkeypatch.setattr(run, "TRACE_SECONDS", 0.05)
+    monkeypatch.setattr(run.Window, "_mark",
+                        lambda self, name: calls.append((name, len(seen))))
+    window = run.Window(mix, SEED, seconds, run.SampleSink([], 30), False,
+                        Profiler())
+    for ev in window:
+        seen.append(ev)
+        if ev.quit:
+            break
+        time.sleep(0.002)
+    margin = run.TRACE_MARGIN_FRAMES
+    end = 30 + window.traced_frames
+    last = len(seen) - 1   # the frame that quits
+    stop = end + margin if stops_on_margin else last
+    assert calls == [("start", 30 - margin), (tr.BEGIN, 30), (tr.END, end),
+                     (tr.DRAINED, end), ("stop", stop)]
+    assert stop <= last

@@ -1,8 +1,9 @@
 """The span readers (``portbench/spans.py`` and the metrics that use it)
 on a hand-built Chrome trace of two frames: every metric's exact value, a
 kernel launched in a child span counting for the child alone, idle
-outside every span counting for no metric, no value where launches and
-kernels do not pair, and none from a program without the spans."""
+outside every span counting for no metric, kernels found by correlation
+id wherever their records lie, no kernel time where a launch call has no
+kernel, and no value from a program without the spans."""
 
 import json
 
@@ -22,12 +23,15 @@ def host(name, ts, end, cat="user_annotation"):
     return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": end - ts}
 
 
-def launch(ts, name="cudaLaunchKernel", cat="cuda_runtime"):
-    return host(name, ts, ts + 0.25, cat)
+def launch(ts, corr, name="cudaLaunchKernel", cat="cuda_runtime"):
+    return dict(host(name, ts, ts + 0.25, cat), args={"correlation": corr})
 
 
-def device(name, ts, end, cat="kernel"):
-    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": end - ts}
+def device(name, ts, end, corr=None, cat="kernel"):
+    event = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": end - ts}
+    if corr is not None:
+        event["args"] = {"correlation": corr}
+    return event
 
 
 # Times in microseconds.  Frame 1 runs [1, 50], frame 2 [55, 95]; the
@@ -35,27 +39,27 @@ def device(name, ts, end, cat="kernel"):
 EVENTS = [
     host(tr.BEGIN, 0, 0), host(tr.END, 100, 100), host(tr.DRAINED, 120, 120),
     host("kani.frame", 1, 50),
-    launch(1.5), device("fill_kernel", 1.6, 1.9),            # loop: 0.3
+    launch(1.5, 1), device("fill_kernel", 1.6, 1.9, 1),      # loop: 0.3
     host("kani.geometry", 2, 20),
-    launch(3), device("vertex_kernel", 5, 9),                # geometry: 4
+    launch(3, 2), device("vertex_kernel", 5, 9, 2),          # geometry: 4
     host("kani.shadow", 10, 15),
-    launch(11), device("raster_depth_kernel", 12, 14),       # shadow: 2
+    launch(11, 3), device("raster_depth_kernel", 12, 14, 3),  # shadow: 2
     # a cudaLaunchKernel and the cuLaunchKernel inside it: one launch
-    launch(16), launch(16.1, "cuLaunchKernel", "cuda_driver"),
-    device("bin_kernel", 17, 18),                            # geometry: 1
+    launch(16, 4), launch(16.1, 104, "cuLaunchKernel", "cuda_driver"),
+    device("bin_kernel", 17, 18, 4),                         # geometry: 1
     host("kani.raster", 21, 25),
-    launch(22), device("raster_pixels_kernel", 23, 26),      # raster: 3
+    launch(22, 5), device("raster_pixels_kernel", 23, 26, 5),  # raster: 3
     host("kani.shade", 26, 40),
-    launch(27), device("elementwise_kernel", 28, 38),        # shade: 10
+    launch(27, 6), device("elementwise_kernel", 28, 38, 6),  # shade: 10
     host("kani.present", 41, 49),
     host("kani.present.wait", 42, 47),
     host("cudaEventSynchronize", 42, 47, "cuda_runtime"),
-    device("Memcpy DtoH (Device -> Pinned)", 43, 46, "gpu_memcpy"),
-    launch(52), device("outside_kernel", 53, 54),            # no span: 1
+    device("Memcpy DtoH (Device -> Pinned)", 43, 46, cat="gpu_memcpy"),
+    launch(52, 7), device("outside_kernel", 53, 54, 7),      # no span: 1
     host("kani.frame", 55, 95),
     host("kani.geometry", 56, 60),
     host("kani.shade", 61, 70),
-    launch(62), device("gather_kernel", 63, 65),             # shade: 2
+    launch(62, 8), device("gather_kernel", 63, 65, 8),       # shade: 2
     host("aten::index", 62, 62.5, "cpu_op"),
 ]
 
@@ -118,15 +122,40 @@ def test_child_span_keeps_its_kernels_and_idle_outside_spans_counts_nowhere(
         window - tr.busy_s(trace) * 1e6)
 
 
-def test_a_launch_without_its_kernel_gives_no_attribution(tmp_path):
+def test_a_launch_without_its_kernel_gives_no_attribution(tmp_path,
+                                                         capsys):
+    """No kernel time by span, and a line on standard error that says
+    so; the device's idle, read without the pairing, still reads."""
     events = [e for e in EVENTS if e["name"] != "gather_kernel"]
     got = readings(read_trace(tmp_path, events))
-    assert spans.attribution(read_trace(tmp_path, events)) is None
+    assert spans.attribution(read_trace(tmp_path, events)).device_us is None
+    assert "1 of the traced window's launch calls" in capsys.readouterr().err
     for name in METRICS:
-        if name == "present.wait_ms":   # read from the host's spans alone
-            assert got[name] == pytest.approx(EXPECTED[name])
-        else:
+        if name.endswith(".device_ms"):
             assert got[name] is None, name
+        else:
+            assert got[name] is not None, name
+    # The kernel left out lay in the second frame's shade span.
+    assert got["shade.idle_ms"] == pytest.approx(
+        EXPECTED["shade.idle_ms"] + 2e-3 / FRAMES)
+    assert got["geometry.idle_ms"] == pytest.approx(
+        EXPECTED["geometry.idle_ms"])
+
+
+def test_kernels_are_found_by_correlation_wherever_their_records_lie(
+        tmp_path):
+    """A kernel launched in the window whose record lies after the last
+    marker counts for its launch's span; a record inside the window of a
+    kernel launched before it counts for no span's kernel time."""
+    events = [dict(e, ts=121, dur=2) if e["name"] == "gather_kernel" else e
+              for e in EVENTS]
+    events += [launch(-5, 9), device("early_kernel", 0.2, 0.8, 9)]
+    got = readings(read_trace(tmp_path, events))
+    for name in METRICS:
+        if name.endswith(".device_ms"):
+            assert got[name] == pytest.approx(EXPECTED[name], rel=1e-9), name
+    att = spans.attribution(read_trace(tmp_path, events))
+    assert sum(att.launches.values()) == 8
 
 
 def test_a_program_without_spans_reads_nothing(tmp_path):

@@ -33,6 +33,10 @@ class Trace(NamedTuple):
     device: list         # (start_us, end_us, name) of every device op
     host: list           # (start_us, end_us, name) of the host's ops
     calls: dict          # runtime call name → count within the window
+    launches: list       # (start_us, end_us, correlation) of the launch
+    #                      calls that start in the window, in start order
+    kernels: dict        # correlation → (start_us, end_us) of every kernel
+    #                      record of the trace, in the window or not
 
     @property
     def window_s(self) -> float:
@@ -41,22 +45,28 @@ class Trace(NamedTuple):
 
 def read(path: str, frames: int) -> Trace:
     """The window of the trace at ``path`` (a Chrome trace written by
-    ``torch.profiler``), over ``frames`` frames."""
+    ``torch.profiler``), over ``frames`` frames.  The profiler gives a
+    launch call and the kernel it launched one correlation id."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     marks = {}
-    device, host = [], []
+    device, host, launches, kernels = [], [], [], {}
     for e in events:
         if e.get("ph") != "X":
             continue
         name, cat = e.get("name", ""), e.get("cat", "")
         ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        corr = (e.get("args") or {}).get("correlation")
         if name in (BEGIN, END, DRAINED):
             marks[name] = ts
         elif cat in DEVICE_CATS:
             device.append((ts, ts + dur, name))
+            if cat == "kernel" and corr is not None:
+                kernels[corr] = (ts, ts + dur)
         elif cat in HOST_CATS:
             host.append((ts, ts + dur, name))
+            if name in LAUNCHES:
+                launches.append((ts, ts + dur, corr))
     missing = {BEGIN, END, DRAINED} - set(marks)
     if missing:
         raise ValueError(f"trace lacks the markers {sorted(missing)}")
@@ -67,7 +77,9 @@ def read(path: str, frames: int) -> Trace:
             calls[name] = calls.get(name, 0) + 1
     device = sorted((max(s, b), min(t, d), n) for s, t, n in device
                     if t > b and s < d)
-    return Trace(frames, b, e, d, device, host, calls)
+    launches = sorted((x for x in launches if b <= x[0] < d),
+                      key=lambda x: x[:2])
+    return Trace(frames, b, e, d, device, host, calls, launches, kernels)
 
 
 def busy_intervals(trace: Trace) -> list:
