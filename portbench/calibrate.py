@@ -45,12 +45,14 @@ def main(argv=None) -> int:
     control = [int(s) for s in args.control_seeds.split(",") if s]
     pcfg = run.render_config(config, mix)
     rcfg = run.reference_config(config, mix)
+    lights = run.reference_lights(config, "cuda")
     directory = scenefiles.scene_dir(config)
     scene, builder = run.load_program_scene(config, directory, "cuda")
     samples = {}
     for seed in sorted(set(seeds) | set(control)):
         r, window, sink, overflow, t_end = run.drive(
-            scene, builder, pcfg, mix, seed, args.seconds, True)
+            scene, builder, pcfg, run.point_lights(config), mix, seed,
+            args.seconds, True)
         samples[seed] = sink.samples
         frames = r["frames"] - mix["warmup_frames"]
         print(json.dumps({"seed": seed, "kind": "window", "frames": frames,
@@ -66,15 +68,16 @@ def main(argv=None) -> int:
     lows, ups = [], []
     for seed in seeds:
         w = compare.worst(run.check_samples(ref_scene, rcfg, mix, seed,
-                                            samples[seed]))
+                                            samples[seed], lights))
         lows.append(w)
         print(json.dumps({"seed": seed, "kind": "program", **w}), flush=True)
     for seed in control:
         poses = traffic.poses(mix, seed, max(g for g, _ in samples[seed]) + 1)
-        frames = [(g, render_frame(ref_scene, poses[g], rcfg, lowp=True))
+        frames = [(g, render_frame(ref_scene, poses[g], rcfg, lowp=True,
+                                   lights=lights))
                   for g, _ in samples[seed]]
         w = compare.worst(run.check_samples(ref_scene, rcfg, mix, seed,
-                                            frames))
+                                            frames, lights))
         ups.append(w)
         print(json.dumps({"seed": seed, "kind": "control", **w}), flush=True)
     summary = {k: {"lower": max(x[k] for x in lows) if lows else None,

@@ -8,7 +8,9 @@ and ``_host_start_state``, ``passes/frame.frame_uniforms_host`` and the
 whole-frame body of ``passes/frame.render_band`` with a fresh shadow map,
 no bands and no occlusion skip (which renders the same pixels).  The
 movable light takes no input in the benchmark's traffic, so it stays at
-its start; the sun stays where the rig puts it.
+its start; the sun stays where the rig puts it.  The rig is
+``default_lights``' unless a caller hands in another (a configuration's
+``point_lights``), as the loop's ``point_lights`` argument chooses.
 
 ``lowp=True`` is the control: the same frame with every floating-point
 stage result rounded to bfloat16 (the uniforms, the vertex stage's clip
@@ -103,12 +105,14 @@ def _rounder(lowp: bool):
     return lambda t: t.to(torch.bfloat16).to(t.dtype)
 
 
-def frame_inputs(scene: Scene, pose, cfg: RenderConfig, lowp: bool = False):
+def frame_inputs(scene: Scene, pose, cfg: RenderConfig, lowp: bool = False,
+                 lights: Lights | None = None):
     """(FrameState, (view_proj, light_vp)) of a pose on the scene's device,
-    with the rig of one point light."""
+    with the light rig ``lights`` (on that device), by default the one of
+    one point light."""
     dev = scene.device
     q = _rounder(lowp)
-    rig = default_lights(device=dev)
+    rig = default_lights(device=dev) if lights is None else lights
     sun = rig.directional
     host_sun = [t.cpu().numpy() for t in (sun.direction, sun.distance,
                                           sun.shadow_scene_size)]
@@ -126,10 +130,11 @@ def frame_inputs(scene: Scene, pose, cfg: RenderConfig, lowp: bool = False):
 
 
 def camera_geometry(scene: Scene, pose, cfg: RenderConfig,
-                    lowp: bool = False):
+                    lowp: bool = False, lights: Lights | None = None):
     """(state, uniforms, vertex outputs, camera TriangleSetup, planes)."""
     q = _rounder(lowp)
-    state, (view_proj, light_vp) = frame_inputs(scene, pose, cfg, lowp)
+    state, (view_proj, light_vp) = frame_inputs(scene, pose, cfg, lowp,
+                                                lights)
     vout = run_vertex_stage_corners(scene, state.object_model,
                                     state.object_normal, view_proj, light_vp)
     vout = type(vout)(*(q(t) for t in vout))
@@ -150,13 +155,15 @@ def shadow_setup(scene: Scene, vout, cfg: RenderConfig):
 
 @torch.no_grad()
 def render_frame(scene: Scene, pose, cfg: RenderConfig,
-                 lowp: bool = False) -> np.ndarray:
+                 lowp: bool = False,
+                 lights: Lights | None = None) -> np.ndarray:
     """The (H, W, 3) u8 surface of one frame of ``cfg.mode`` (LIT,
-    LIT_SHADOW or WIREFRAME; LDR) at ``pose``."""
+    LIT_SHADOW or WIREFRAME; LDR) at ``pose``, lit by ``lights``
+    (``frame_inputs``)."""
     q = _rounder(lowp)
     mode, D = cfg.mode, cfg.shadow_dim
     state, (view_proj, light_vp), vout, st, planes = camera_geometry(
-        scene, pose, cfg, lowp)
+        scene, pose, cfg, lowp, lights)
     table = None
     if mode == RenderMode.LIT_SHADOW:
         sst = shadow_setup(scene, vout, cfg)

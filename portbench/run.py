@@ -4,11 +4,11 @@ process, one result line.
     python -m portbench.run --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-A cell is a configuration (``configs/<name>.json``: the scene and the
-surface) under a traffic mix (``traffic/<name>.json``: the mode and the
-fly-through's parameters); either may add a ``render`` object of
-RenderConfig fields, applied alike to the program's and the reference's.
-The run:
+A cell is a configuration (``configs/<name>.json``: the scene, the
+surface and, with ``point_lights``, the light rig) under a traffic mix
+(``traffic/<name>.json``: the mode and the fly-through's parameters);
+either may add a ``render`` object of RenderConfig fields, applied alike
+to the program's and the reference's.  The run:
 
 1. writes the configuration's scene, made by the generator that its
    ``geometry.generator`` names (``scenes/<name>.py``), as OBJ + MTL + PNG
@@ -16,9 +16,10 @@ The run:
    program's ``api.load_model_or_default``, checking the triangle and
    material counts (the loader falls back to a cube where a load fails);
 2. drives the program's interactive loop, ``runtime.loop.run_loop``, with
-   the mix's events (``traffic.py``; F1 in the first frame leaves the
-   loop's 60 Hz cap), a fixed 1/60 s controller step and a sink that keeps
-   a copy of a few presented frames, drawn from the seed;
+   the configuration's ``point_lights``, the mix's events (``traffic.py``;
+   F1 in the first frame leaves the loop's 60 Hz cap), a fixed 1/60 s
+   controller step and a sink that keeps a copy of a few presented frames,
+   drawn from the seed;
 3. warms up for the mix's ``warmup_frames``, synchronises, and measures
    every frame of ``--seconds`` seconds back to back (closed loop), then
    synchronises again; the frame time of each 5 s slice of the window
@@ -28,8 +29,9 @@ The run:
    reads the per-layer metrics (``metrics/<name>.py``) from the trace;
 5. frees the program's scene and renders the sampled frames' poses with
    the plain reference (``reference/``), which recomputes the poses from
-   the events and the scene from the generated arrays and the files, and
-   compares (``compare.py``).
+   the events, the scene from the generated arrays and the files and the
+   light rig as the loop chooses it (``reference_lights``), and compares
+   (``compare.py``).
 
 The last line of standard output is the result's JSON; the compared
 numbers and their limits are the last lines of standard error.
@@ -255,15 +257,19 @@ def slice_ms(stamps: list, t0: float, width: float = SLICE_SECONDS) -> list:
 class MetricContext:
     """What a per-layer metric reader gets: the traced window, and what a
     reader needs to count a kernel's work on traced poses with
-    ``roofline``'s functions: the reference's scene, its RenderConfig and
-    the poses of ``WORK_POSES`` traced frames, evenly over the trace."""
+    ``roofline``'s functions: the reference's scene, its RenderConfig, its
+    light rig ``lights`` (``reference_lights``) and the poses of
+    ``WORK_POSES`` traced frames, evenly over the trace."""
 
-    def __init__(self, trace, ref_scene, cfg, mix, seed, first_frame):
+    def __init__(self, trace, ref_scene, cfg, lights, mix, seed,
+                 first_frame):
         self.trace = trace
         self.scene = ref_scene
         self.config = cfg
+        self.lights = lights
         self._mix, self._seed, self._first = mix, seed, first_frame
         self._poses = None
+        self._raster_list = None
         self._work = {}
 
     @property
@@ -279,43 +285,76 @@ class MetricContext:
             self._poses = [every[g] for g in gs]
         return self._poses
 
+    def _rasters(self) -> list:
+        """(camera bbox, winning triangle per pixel, (3, N) world positions
+        of the N covered pixels) of the reference's raster of each of
+        ``poses``, shared by the counts."""
+        if self._raster_list is None:
+            self._raster_list = [_raster(self.scene, self.config, pose)
+                                 for pose in self.poses]
+        return self._raster_list
+
     def work(self, kind: str) -> tuple:
-        """(bytes, operations) of a K1 ("depth") or a K2 or K2w ("pixels",
-        by the cell's mode) launch, the mean over ``poses``."""
+        """(bytes, operations) of a K1 ("depth"), a K2 or K2w ("pixels",
+        by the cell's mode) or a shading kernel ("shade", ``lights``'
+        rig) launch, the mean over ``poses``."""
         if kind not in self._work:
-            self._work[kind] = _work(self.scene, self.config, self.poses,
-                                     kind)
+            self._work[kind] = self._count(kind)
         return self._work[kind]
+
+    @torch.no_grad()
+    def _count(self, kind: str) -> tuple:
+        from portbench.reference import frame as rf
+        from portbench.reference.types import RenderMode
+
+        cfg = self.config
+        if kind == "depth":
+            counts = []
+            for pose in self.poses:
+                _, _, vout, _, _ = rf.camera_geometry(self.scene, pose, cfg)
+                counts.append(roofline.depth_work(
+                    rf.shadow_setup(self.scene, vout, cfg).bbox,
+                    cfg.shadow_dim))
+        elif kind == "pixels":
+            counts = [roofline.pixel_work(bbox, tid, cfg.width, cfg.height)
+                      for bbox, tid, _ in self._rasters()]
+        elif kind == "shade":
+            shadow = cfg.mode == RenderMode.LIT_SHADOW
+            counts = []
+            for _, _, world in self._rasters():
+                covered = int(world.shape[1])
+                pairs = roofline.lights_in_range(world, self.lights)
+                counts.append(roofline.shade_work(covered, pairs, cfg.width,
+                                                  cfg.height, shadow))
+                log(f"shade work: {covered} covered pixels, {pairs} of "
+                    f"{covered * (1 + self.lights.points.range.shape[0])} "
+                    "(pixel, light) pairs in range")
+        else:
+            raise ValueError(f"no work of the kind {kind!r}")
+        return (sum(c[0] for c in counts) / len(counts),
+                sum(c[1] for c in counts) / len(counts))
 
 
 @torch.no_grad()
-def _work(scene, cfg, poses, kind):
+def _raster(scene, cfg, pose) -> tuple:
+    """``MetricContext._rasters``' entry of one pose."""
     from portbench.reference import frame as rf
     from portbench.reference.binning import bin_tiles
+    from portbench.reference.forward import WORLD_POS
     from portbench.reference.interpolate import build_tri_records_corners
     from portbench.reference.raster import rasterize_pixels_plain
     from portbench.reference.types import RenderMode
 
-    counts = []
-    for pose in poses:
-        _, _, vout, st, planes = rf.camera_geometry(scene, pose, cfg)
-        if kind == "depth":
-            counts.append(roofline.depth_work(
-                rf.shadow_setup(scene, vout, cfg).bbox, cfg.shadow_dim))
-            continue
-        records = build_tri_records_corners(vout.varyings, planes,
-                                            scene.tri_extra)
-        bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w,
-                         cfg.tile_h, cfg.max_chunks_per_tile)
-        pix = rasterize_pixels_plain(records, st.setup, st.bbox, bins,
-                                     cfg.width, cfg.height,
-                                     wireframe=cfg.mode
-                                     == RenderMode.WIREFRAME,
-                                     wire_thresh=cfg.wire_thresh_px)
-        counts.append(roofline.pixel_work(st.bbox, pix.tid, cfg.width,
-                                          cfg.height))
-    return (sum(c[0] for c in counts) / len(counts),
-            sum(c[1] for c in counts) / len(counts))
+    _, _, vout, st, planes = rf.camera_geometry(scene, pose, cfg)
+    records = build_tri_records_corners(vout.varyings, planes,
+                                        scene.tri_extra)
+    bins = bin_tiles(st.bbox, cfg.width, cfg.height, cfg.tile_w,
+                     cfg.tile_h, cfg.max_chunks_per_tile)
+    pix = rasterize_pixels_plain(records, st.setup, st.bbox, bins,
+                                 cfg.width, cfg.height,
+                                 wireframe=cfg.mode == RenderMode.WIREFRAME,
+                                 wire_thresh=cfg.wire_thresh_px)
+    return st.bbox, pix.tid, pix.varyings[WORLD_POS][:, pix.mask]
 
 
 def end_to_end(window: Window, t_end: float, frames: int) -> dict:
@@ -406,21 +445,55 @@ def reference_config(config: dict, mix: dict):
         render_settings(config, mix))
 
 
+def point_lights(config: dict) -> int:
+    """The configuration's ``point_lights``, the loop's argument of that
+    name (1 without the key); raises unless a whole number of at least
+    1."""
+    n = config.get("point_lights", 1)
+    if type(n) is not int or n < 1:
+        raise ValueError(f"point_lights {n!r} of the configuration "
+                         f"{config['name']!r} is no whole number of at "
+                         "least 1")
+    return n
+
+
+def reference_lights(config: dict, device):
+    """The reference's light rig of a configuration, as the loop chooses
+    it from ``point_lights`` N: ``default_lights``' for N = 1, its
+    point-light array replaced by ``spawn_point_lights(N)``'s for N > 1.
+    Raises unless the array holds ``expect.point_lights`` lights (a key
+    that ``point_lights`` needs; 1 where both are left out)."""
+    from portbench.reference.types import default_lights, spawn_point_lights
+    n = point_lights(config)
+    rig = default_lights(device=device)
+    if n > 1:
+        rig = rig._replace(points=spawn_point_lights(n, device=device))
+    want = config["expect"].get("point_lights",
+                                None if "point_lights" in config else 1)
+    got = int(rig.points.range.shape[0])
+    if type(want) is not int or got != want:
+        raise ValueError(f"point_lights {n} gives {got} lights, and the "
+                         f"configuration {config['name']!r} expects "
+                         f"{want!r} (expect.point_lights)")
+    return rig
+
+
 def reference_scene(config: dict, directory: Path, device):
     from portbench.reference.scene import pack_scene
     return pack_scene(*scenefiles.reference_inputs(config, directory),
                       device)
 
 
-def check_samples(ref_scene, rcfg, mix, seed, samples) -> list:
+def check_samples(ref_scene, rcfg, mix, seed, samples, lights) -> list:
     """The compared numbers of every sampled (frame number, u8 surface)
-    against the reference's frame of the same pose."""
+    against the reference's frame of the same pose under the rig
+    ``lights``."""
     from portbench.reference.frame import render_frame
     if not samples:
         return []
     poses = traffic.poses(mix, seed, max(g for g, _ in samples) + 1)
     return [compare.frame_numbers(img, render_frame(ref_scene, poses[g],
-                                                    rcfg))
+                                                    rcfg, lights=lights))
             for g, img in samples]
 
 
@@ -445,10 +518,10 @@ def load_program_scene(config: dict, directory: Path, device: str):
     return scene, builder
 
 
-def drive(scene, builder, pcfg, mix: dict, seed: int,
+def drive(scene, builder, pcfg, point_lights: int, mix: dict, seed: int,
           seconds: float, cuda: bool, prof=None, break_frames=None):
     """One warm-up and window of the program's loop under its RenderConfig
-    ``pcfg`` (``render_config``) → (the loop's
+    ``pcfg`` (``render_config``) and ``point_lights`` → (the loop's
     statistics, the Window, the SampleSink, the overflow per presented
     frame, the host clock once the device had finished)."""
     from kanirenderer_tpu_torch.runtime import loop as loop_module
@@ -461,7 +534,8 @@ def drive(scene, builder, pcfg, mix: dict, seed: int,
     window = Window(mix, seed, seconds, sink, cuda, prof)
     try:
         run = loop_module.run_loop(scene, window, config=pcfg, sink=sink,
-                                   builder=builder, fixed_dt=mix["fixed_dt"])
+                                   builder=builder, fixed_dt=mix["fixed_dt"],
+                                   point_lights=point_lights)
     finally:
         loop_module.render_frame = saved_render
         unwatch()
@@ -485,11 +559,12 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int,
     """One run of ``cell``; returns the result's fields.  ``device``
     "cpu" and ``break_frames`` (a function that wraps the program's
     ``render_frame``) serve the harness's own tests.  A configuration's
-    generator or render keys that do not resolve raise before anything
-    is loaded."""
+    generator, render keys or light rig that do not resolve raise before
+    anything is loaded."""
     cuda = device == "cuda"
     pcfg = render_config(config, mix)
     rcfg = reference_config(config, mix)
+    lights = reference_lights(config, device)
     t_cell = time.perf_counter()
     directory = scenefiles.scene_dir(config, cache)
     t_files = time.perf_counter()
@@ -504,7 +579,8 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int,
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
     run, window, sink, overflow, t_end = drive(
-        scene, builder, pcfg, mix, seed, seconds, cuda, prof, break_frames)
+        scene, builder, pcfg, point_lights(config), mix, seed, seconds, cuda,
+        prof, break_frames)
     attempted = len(window.stamps) - 1
     frames = run["frames"] - mix["warmup_frames"]
     peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -529,7 +605,8 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int,
 
     t_ref = time.perf_counter()
     ref_scene = reference_scene(config, directory, device)
-    numbers = check_samples(ref_scene, rcfg, mix, seed, sink.samples)
+    numbers = check_samples(ref_scene, rcfg, mix, seed, sink.samples,
+                            lights)
     log(f"reference: {len(numbers)} frames compared in "
         f"{time.perf_counter() - t_ref:.4f} s")
     numbers += [compare.MISSING] * (mix["samples"] - len(numbers))
@@ -550,7 +627,7 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int,
             t = tr.read(trace_path, window.traced_frames)
         finally:
             os.unlink(trace_path)
-        ctx = MetricContext(t, ref_scene, rcfg, mix, seed,
+        ctx = MetricContext(t, ref_scene, rcfg, lights, mix, seed,
                             mix["warmup_frames"])
         metrics = {}
         for m in bench["per_layer"]:

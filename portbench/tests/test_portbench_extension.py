@@ -184,9 +184,11 @@ def test_the_metric_context_is_public(tmp_path, tiny_config):
     trace = tr.Trace(frames=40, begin_us=0.0, end_us=1.0, drained_us=1.0,
                      device=[], host=[], calls={}, launches=[],
                      kernels={})
-    ctx = run.MetricContext(trace, scene, rcfg, mix, SEED,
+    lights = run.reference_lights(tiny_config, "cpu")
+    ctx = run.MetricContext(trace, scene, rcfg, lights, mix, SEED,
                             mix["warmup_frames"])
     assert ctx.scene is scene and ctx.config is rcfg and ctx.trace is trace
+    assert ctx.lights is lights
     every = traffic.poses(mix, SEED, mix["warmup_frames"] + 40)
     first = mix["warmup_frames"]
     assert len(ctx.poses) == run.WORK_POSES == 2
@@ -200,6 +202,14 @@ def test_the_metric_context_is_public(tmp_path, tiny_config):
     bytes_moved, ops = ctx.work("pixels")
     assert bytes_moved > 0 and ops > 0
     assert roofline.bound_ms(bytes_moved, ops)[0] > 0
+    # the shading kernel's work, on the default rig and on 150 lights
+    assert lights.points.range.shape == (1,)
+    shade = ctx.work("shade")
+    lit = run.MetricContext(trace, scene, rcfg, run.reference_lights(
+        dict(tiny_config, point_lights=50, expect={"point_lights": 150}),
+        "cpu"), mix, SEED, mix["warmup_frames"])
+    assert lit.work("shade")[0] == shade[0] > 0
+    assert lit.work("shade")[1] > shade[1] > 0
 
 
 @pytest.mark.parametrize("config_name", ["sponza-1080p", "sponza-2160p"])
